@@ -1,0 +1,131 @@
+"""Typed request/response surface of the search service.
+
+The same objects as the reference package: an `IndexSpec` describes what
+to build, a `SearchRequest` one batched call, a `SearchResponse` the
+results plus optional per-query statistics. `IndexSpec` keeps every field
+of the reference and the same JSON round-trip, so the port parses index
+manifests the reference wrote (and the reference parses the port's).
+
+This slice serves the float32 path only; a spec that asks for quantized
+or product-quantized storage raises NotImplementedError where it is used.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+from repro_torch.core.hnsw_graph import HNSWConfig
+
+__all__ = ["IndexSpec", "SearchRequest", "SearchResponse", "QueryStats",
+           "FORMAT_VERSION", "PQ_FORMAT_VERSION"]
+
+# Version of the on-disk index layout (manifest + checkpoint step dirs).
+FORMAT_VERSION = 1
+# Product-quantized indexes (dtype="pq") are written as version 3 by the
+# reference; the port recognises the number and refuses it for now.
+PQ_FORMAT_VERSION = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexSpec:
+    """Everything needed to build (or re-open) an index.
+
+    metric  : "l2" | "ip" | "cosine" (see api.metrics)
+    backend : "exact" | "hnsw" | "partitioned" ported; "distributed" and
+              "csd" raise NotImplementedError in this slice
+    num_partitions : stage-1 sub-graph count (paper §4.1)
+    dtype   : "float32"; "uint8" / "int8" / "pq" are not yet ported
+    qscale / qzero / pq_m / pq_codebooks : quantizer state of the
+              reference's quantized specs (parsed and written back, unused)
+    hnsw    : graph construction knobs (ignored by the exact backend)
+    keep_vectors : retain the raw vectors beside the graph — needed for
+              `SearchRequest.rerank`, and saved with the index
+    storage_path / block_size / cache_bytes / prefetch : `csd` knobs
+    fused_hops : layer-0 hops per traversal kernel launch; bit-identical
+              results at every value, and it rides the manifest
+    """
+
+    metric: str = "l2"
+    backend: str = "partitioned"
+    num_partitions: int = 1
+    hnsw: HNSWConfig = dataclasses.field(default_factory=HNSWConfig)
+    keep_vectors: bool = False
+    storage_path: str | None = None
+    block_size: int = 4096
+    cache_bytes: int = 64 << 20
+    prefetch: bool = True
+    dtype: str = "float32"
+    qscale: float | None = None
+    qzero: int | None = None
+    fused_hops: int = 1
+    pq_m: int = 8
+    pq_codebooks: Any = None  # nested lists [pq_m][256][dsub], JSON-ready
+
+    def quantizer(self):
+        """None for the float32 path; quantized storage is not ported."""
+        if self.dtype == "float32":
+            return None
+        raise NotImplementedError(
+            f"dtype={self.dtype!r} (quantized storage) is not yet ported; "
+            f"see ROADMAP.md")
+
+    def to_json(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["hnsw"] = dataclasses.asdict(self.hnsw)
+        return d
+
+    @classmethod
+    def from_json(cls, d: dict) -> "IndexSpec":
+        d = dict(d)
+        hnsw_fields = {f.name for f in dataclasses.fields(HNSWConfig)}
+        hnsw = HNSWConfig(**{k: v for k, v in d.pop("hnsw", {}).items()
+                             if k in hnsw_fields})
+        known = {f.name for f in dataclasses.fields(cls)} - {"hnsw"}
+        return cls(hnsw=hnsw, **{k: v for k, v in d.items() if k in known})
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchRequest:
+    """One batched search call.
+
+    queries : [B, D] array-like (numpy or a tensor)
+    k       : results per query
+    ef      : beam width (graph backends; the exact backend ignores it)
+    rerank  : recompute exact distances over the stage-1 candidate pool
+    with_stats : return per-query hop / distance-evaluation counts
+    trace   : kept for parity with the reference; ignored by the port
+    """
+
+    queries: Any
+    k: int = 10
+    ef: int = 40
+    rerank: bool = False
+    with_stats: bool = False
+    trace: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryStats:
+    """Per-query counters; `None` where a backend does not track one. The
+    storage counters belong to the csd backend, not yet ported."""
+
+    hops: Any = None            # [B] candidate pops at layer 0
+    dist_calcs: Any = None      # [B] distance evaluations == "vector reads"
+    block_reads: Any = None
+    cache_hits: Any = None
+    cache_misses: Any = None
+    cache_hit_rate: Any = None
+    bytes_read: Any = None
+    supersteps: Any = None
+    segments: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchResponse:
+    """ids/dists are [B, k] tensors on the service's device; -1 / +inf
+    mark empty slots."""
+
+    ids: Any
+    dists: Any
+    stats: QueryStats | None = None

@@ -1,0 +1,220 @@
+"""Fixed-shape HNSW search in PyTorch (paper Algorithm 1, HW-modified).
+
+The port of the reference's `core/search.py`, batched over query lanes
+instead of vmapped:
+
+  * single-bit visited list     -> packed bitmap, N/8 bytes a lane (int32
+                                   words holding the reference's uint32 bits)
+  * parallel distance calculator-> ||x||^2 - 2 x.q + ||q||^2 over a whole
+                                   padded neighbor row, mul + sum
+  * parallel insertion sort     -> rank-based merge of sorted rows
+                                   (`merge_sorted`)
+  * multi-query processing      -> a written-out lane axis; the stacked
+                                   partition axis P is folded into it, so
+                                   L = P*B lanes search at once
+
+Upper layers run a greedy descent (ef = 1) as batched torch ops with a
+per-lane `running` mask (partitions have different `max_level`). Layer 0
+always runs the superstep loop: `fused_layer0` advances every lane by
+H = max(fused_hops, 1) hops per call — the CUDA kernel on the card, its
+plain version on the CPU — until no lane is live. The reference's own
+contract makes the result bit-identical at every `fused_hops`.
+
+Ids are int32 everywhere, -1 padded; distances are +inf padded.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.hnsw_graph import DeviceDB
+from repro_torch.kernels.ops import fused_layer0
+from repro_torch.kernels.traversal import (
+    merge_sorted,
+    metric_distance,
+    visited_test_and_set,
+)
+
+__all__ = [
+    "SearchParams",
+    "SearchStats",
+    "bitmap_words",
+    "merge_sorted",
+    "metric_distance",
+    "visited_test_and_set",
+    "prepare_queries",
+    "search_lanes",
+    "batch_search",
+]
+
+_INF = float("inf")
+
+
+def bitmap_words(n: int) -> int:
+    """Words needed for an n-bit visited bitmap: ceil(n / 32) (floor
+    division here once aliased the last partial word)."""
+    return (n + 31) // 32
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchParams:
+    """Search-time knobs (paper: ef=40, K=10 for all SIFT1B results).
+
+    `metric`: l2 (squared Euclidean), ip (negative inner product) or
+    cosine (1 - q.x over unit-norm inputs). `fused_hops` is the number of
+    layer-0 hops per traversal launch; results are bit-identical at every
+    value."""
+
+    ef: int = 40
+    k: int = 10
+    cand_size: int = 0        # 0 -> resolved to ef + maxM0
+    max_hops: int = 0         # 0 -> resolved to 4*ef + 16
+    upper_hops: int = 32      # per-layer greedy budget in upper layers
+    metric: str = "l2"
+    fused_hops: int = 1
+
+    def resolve(self, maxM0: int) -> "SearchParams":
+        cand = self.cand_size or (self.ef + maxM0)
+        hops = self.max_hops or (4 * self.ef + 16)
+        return dataclasses.replace(self, cand_size=cand, max_hops=hops)
+
+
+class SearchStats(NamedTuple):
+    hops: torch.Tensor        # candidate pops at layer 0 (per query)
+    dist_calcs: torch.Tensor  # distance evaluations == "vector reads" (Fig. 9)
+
+
+def _lane_distances(db: DeviceDB, part, q, qsq, ids, valid, metric: str):
+    """Distances from each lane's query to vectors[part, ids] ([L, M]);
+    invalid slots -> +inf. mul + sum, as the reference's `_batch_distances`
+    (a matvec's summation order depends on its context)."""
+    safe = torch.where(valid, ids, torch.zeros_like(ids))
+    idx = safe.long()
+    vecs = db.vectors[part[:, None], idx].float()          # [L, M, D]
+    d = metric_distance(metric, (vecs * q[:, None, :]).sum(-1),
+                        db.sqnorms[part[:, None], idx], qsq[:, None])
+    return torch.where(valid, d, _INF), safe
+
+
+# ---------------------------------------------------------------------------
+# Upper layers: greedy descent (ef = 1), paper §5.2.2
+# ---------------------------------------------------------------------------
+
+
+def _greedy_upper(db: DeviceDB, part, q, qsq, p: SearchParams):
+    """Descend every lane from its partition's top layer to layer 1.
+
+    Returns the layer-0 entry (id, distance) and the distance evaluations
+    so far, which start at 1 for the entry point itself."""
+    ep = db.entry[part]
+    ep_d = metric_distance(
+        p.metric, (db.vectors[part, ep.long()].float() * q).sum(-1),
+        db.sqnorms[part, ep.long()], qsq)
+    cur, cur_d = ep, ep_d
+    calcs = torch.ones_like(ep)
+    max_level = db.max_level[part]
+    n_layers = db.up_nbrs.shape[1]                 # static cap - 1
+    for layer in range(n_layers, 0, -1):
+        running = layer <= max_level               # this partition has it
+        for _ in range(p.upper_hops):
+            if not bool(running.any()):
+                break
+            row = db.up_ptr[part, cur.long()]
+            nbrs = db.up_nbrs[part, layer - 1, row.clamp_min(0).long()]
+            valid = (nbrs >= 0) & (row >= 0)[:, None]
+            d, safe = _lane_distances(db, part, q, qsq, nbrs, valid, p.metric)
+            j = d.argmin(dim=1, keepdim=True)      # first index on ties
+            best_d = d.gather(1, j)[:, 0]
+            best = safe.gather(1, j)[:, 0]
+            calcs = torch.where(running, calcs + valid.sum(1, dtype=calcs.dtype),
+                                calcs)
+            running = running & (best_d < cur_d)
+            cur = torch.where(running, best, cur)
+            cur_d = torch.where(running, best_d, cur_d)
+    return cur, cur_d, calcs
+
+
+# ---------------------------------------------------------------------------
+# Layer 0: beam search driven by H-hop supersteps (paper §5.2.3, Fig. 6)
+# ---------------------------------------------------------------------------
+
+
+def _search_layer0(db: DeviceDB, queries, qsq, ep, ep_d, p: SearchParams):
+    L = ep.shape[0]
+    dev = ep.device
+    C, EF = p.cand_size, p.ef
+    visited = torch.zeros((L, bitmap_words(db.vectors.shape[1])),
+                          dtype=torch.int32, device=dev)
+    _, visited = visited_test_and_set(
+        visited, ep[:, None], torch.ones((L, 1), dtype=torch.bool, device=dev))
+    cand_d = torch.full((L, C), _INF, device=dev)
+    cand_i = torch.full((L, C), -1, dtype=torch.int32, device=dev)
+    fin_d = torch.full((L, EF), _INF, device=dev)
+    fin_i = torch.full((L, EF), -1, dtype=torch.int32, device=dev)
+    cand_d[:, 0], cand_i[:, 0] = ep_d, ep
+    fin_d[:, 0], fin_i[:, 0] = ep_d, ep
+    hops = torch.zeros(L, dtype=torch.int32, device=dev)
+    calcs = torch.zeros(L, dtype=torch.int32, device=dev)
+    # Algorithm 1 lines 2 & 5: a lane is live while its nearest candidate
+    # can still improve the final list and its hop budget lasts
+    while bool(((cand_d[:, 0] < fin_d[:, -1]) & (hops < p.max_hops)).any()):
+        fused_layer0(db.vectors, db.sqnorms, db.l0_nbrs, queries, qsq,
+                     cand_d, cand_i, fin_d, fin_i, visited, hops, calcs,
+                     fused_hops=max(p.fused_hops, 1), max_hops=p.max_hops,
+                     metric=p.metric)
+    return fin_d, fin_i, hops, calcs
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+def prepare_queries(queries, d_pad: int, device) -> torch.Tensor:
+    """Float32 queries on `device`, zero-padded to the table width."""
+    q = torch.as_tensor(queries, dtype=torch.float32, device=device)
+    if q.shape[-1] < d_pad:
+        q = torch.nn.functional.pad(q, (0, d_pad - q.shape[-1]))
+    return q.contiguous()
+
+
+def search_lanes(db: DeviceDB, queries, p: SearchParams, lut=None):
+    """Search every partition of a stacked DB for every query.
+
+    db: partition-stacked tensors ([P, N_pad, ...]); queries [B, D].
+    Returns global ids [P, B, k] int32, dists [P, B, k] and per-partition
+    SearchStats ([P, B])."""
+    if lut is not None:
+        raise NotImplementedError(
+            "product-quantized (dtype='pq') search is not yet ported; "
+            "see ROADMAP.md")
+    if db.vectors.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{db.vectors.dtype} code tables (quantized search) are not yet "
+            f"ported; see ROADMAP.md")
+    P, _, d_pad = db.vectors.shape
+    p = p.resolve(db.l0_nbrs.shape[-1])
+    queries = prepare_queries(queries, d_pad, db.vectors.device)
+    B = queries.shape[0]
+    lane = torch.arange(P * B, device=queries.device)
+    part, qrow = lane // B, lane % B
+    qsq = (queries * queries).sum(-1)
+    ep, ep_d, up_calcs = _greedy_upper(db, part, queries[qrow], qsq[qrow], p)
+    fin_d, fin_i, hops, calcs = _search_layer0(db, queries, qsq, ep, ep_d, p)
+    k_d, k_i = fin_d[:, : p.k], fin_i[:, : p.k]
+    k_g = torch.where(k_i >= 0,
+                      db.gids[part[:, None], k_i.clamp_min(0).long()], -1)
+    return (k_g.reshape(P, B, -1), k_d.reshape(P, B, -1),
+            SearchStats(hops.reshape(P, B), (calcs + up_calcs).reshape(P, B)))
+
+
+def batch_search(db: DeviceDB, queries, p: SearchParams, lut=None):
+    """Multi-query search of one (unstacked) DeviceDB.
+
+    Returns (global ids [B, k] int32, dists [B, k], SearchStats [B])."""
+    stacked = DeviceDB(*(t.unsqueeze(0) for t in db))
+    ids, ds, st = search_lanes(stacked, queries, p, lut)
+    return ids[0], ds[0], SearchStats(st.hops[0], st.dist_calcs[0])

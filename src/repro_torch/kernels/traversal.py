@@ -1,0 +1,249 @@
+"""Fused multi-hop layer-0 traversal (paper §5.2, Fig. 6): the plain
+PyTorch superstep and the wrapper of its CUDA kernel.
+
+One superstep advances every query lane of the layer-0 beam search by up
+to H hops. Each hop pops the head of the lane's candidate list, gathers
+its neighbor row, test-and-sets the packed visited bitmap, computes the
+distances to the not-yet-visited neighbors, drops those that cannot enter
+the final list (Algorithm 1's line-11 guard), stable-sorts the new batch
+and rank-merges it into the candidate [C] and final [EF] lists. A lane
+whose termination condition holds keeps its state unchanged — the
+per-lane `live` guard of the reference's lockstep loop.
+
+Lanes: the stacked partition axis is folded into the lane axis. The state
+tensors have L = P*B rows; lane l searches partition l // B for query
+l % B, so the tables are the partition-stacked [P, N_pad, ...] tensors and
+`queries` / `qsq` are the [B, ...] batch shared by every partition.
+
+Both versions update the state tensors in place (cand_d, cand_i, fin_d,
+fin_i, visited, hops, calcs) and also return them.
+
+The visited bitmap is int32 holding the reference's uint32 bits: torch has
+no `>>`, `<<` or `scatter_add_` for uint32 on every backend. Testing a bit
+as `(word >> b) & 1` is exact although `>>` on int32 is arithmetic, and
+setting bits is a scatter-add of distinct not-yet-set bits (ids within a
+neighbor row are unique), so no add carries and bit 31 wraps to the right
+two's-complement pattern.
+
+`fused_traversal_ref` is the plain version: the CPU path and the yardstick
+the kernel is compared with on the card. `fused_traversal_cuda` launches
+`csrc/traversal.cu` (built by `_build.py`) and counts its launches in
+`LAUNCHES`. `ops.fused_layer0` picks one by the tensors' device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["LAUNCHES", "METRICS", "fused_traversal_ref",
+           "fused_traversal_cuda", "merge_sorted", "metric_distance",
+           "visited_test_and_set"]
+
+# launches of the CUDA kernel since import (or since a caller reset it)
+LAUNCHES = 0
+
+METRICS = {"l2": 0, "ip": 1, "cosine": 2}
+
+# shape limits of csrc/traversal.cu (its static shared-memory lists)
+MAX_M0, MAX_C = 128, 256
+
+_INF = float("inf")
+
+
+# ---------------------------------------------------------------------------
+# Building blocks (batched over leading axes)
+# ---------------------------------------------------------------------------
+
+
+def metric_distance(metric: str, dot, xsq, qsq):
+    """Distance from a dot product, ascending == better.
+
+    l2 is ``max(xsq - 2*dot + qsq, 0)`` evaluated as three separately
+    rounded float32 ops — the order the CUDA kernel reproduces with
+    `__fmul_rn` / `__fsub_rn` / `__fadd_rn`."""
+    if metric == "l2":
+        return torch.clamp_min(xsq - 2.0 * dot + qsq, 0.0)
+    if metric == "ip":
+        return -dot
+    if metric == "cosine":                       # unit-norm inputs assumed
+        return 1.0 - dot
+    raise ValueError(f"unknown metric {metric!r}")
+
+
+def merge_sorted(ad, ai, bd, bi):
+    """Merge ascending (dist, id) rows along the last axis; ties keep `a`
+    first.
+
+    Insert positions are ranks: ``pa = i + #(b < a_i)`` (searchsorted
+    left) and ``pb = j + #(a <= b_j)`` (searchsorted right) — the paper's
+    comparison-bit-vector popcount. Returns rows of length na + nb."""
+    na, nb = ad.shape[-1], bd.shape[-1]
+    ad, bd = ad.contiguous(), bd.contiguous()
+    pa = (torch.arange(na, device=ad.device)
+          + torch.searchsorted(bd, ad, side="left"))
+    pb = (torch.arange(nb, device=ad.device)
+          + torch.searchsorted(ad, bd, side="right"))
+    shape = ad.shape[:-1] + (na + nb,)
+    od = ad.new_empty(shape).scatter_(-1, pa, ad).scatter_(-1, pb, bd)
+    oi = ai.new_empty(shape).scatter_(-1, pa, ai).scatter_(-1, pb, bi)
+    return od, oi
+
+
+def visited_test_and_set(bitmap, ids, valid):
+    """Packed visited bitmap [L, W] int32; ids / valid [L, M].
+
+    Returns (was_visited [L, M] bool, new_bitmap): the new bitmap has one
+    more bit set for each id that was valid and not yet visited. `ids`
+    must be unique where valid, so the scatter-add of distinct bits within
+    a word equals bitwise OR."""
+    w = (ids >> 5).long()
+    b = ids & 31
+    old = bitmap.gather(1, w)
+    was = (((old >> b) & 1) != 0) | ~valid
+    add = torch.where(was, torch.zeros_like(b), torch.ones_like(b) << b)
+    return was, bitmap.scatter_add(1, w, add)
+
+
+# ---------------------------------------------------------------------------
+# The plain superstep
+# ---------------------------------------------------------------------------
+
+
+def fused_traversal_ref(vectors, sqnorms, l0_nbrs, queries, qsq,
+                        cand_d, cand_i, fin_d, fin_i, visited, hops, calcs,
+                        *, fused_hops: int, max_hops: int, metric: str = "l2"):
+    """Advance every lane by up to `fused_hops` hops with batched torch ops
+    (in place; see the module docstring for shapes)."""
+    L, C = cand_d.shape
+    EF = fin_d.shape[1]
+    B = queries.shape[0]
+    lane = torch.arange(L, device=cand_d.device)
+    part = (lane // B)[:, None]
+    q = queries[lane % B][:, None, :]            # [L, 1, D]
+    qs = qsq[lane % B][:, None]
+    inf_col = cand_d.new_full((L, 1), _INF)
+    neg_col = cand_i.new_full((L, 1), -1)
+    for _ in range(fused_hops):
+        live = (cand_d[:, 0] < fin_d[:, -1]) & (hops < max_hops)
+        if not bool(live.any()):
+            break
+        c = cand_i[:, 0].clamp_min(0).long()
+        pcand_d = torch.cat([cand_d[:, 1:], inf_col], dim=1)   # pop (line 3)
+        pcand_i = torch.cat([cand_i[:, 1:], neg_col], dim=1)
+
+        nbrs = l0_nbrs[part[:, 0], c]                          # [L, M0]
+        valid = nbrs >= 0
+        safe = torch.where(valid, nbrs, torch.zeros_like(nbrs))
+        was, vis2 = visited_test_and_set(visited, safe, valid)
+        act = valid & ~was
+        idx = safe.long()
+        dot = (vectors[part, idx].float() * q).sum(-1)
+        d = metric_distance(metric, dot, sqnorms[part, idx], qs)
+        d = torch.where(act, d, _INF)
+        ncalcs = calcs + act.sum(1, dtype=torch.int32)
+        # line 11 guard: only candidates that can enter the final list
+        d = torch.where(d < fin_d[:, -1:], d, _INF)
+        ids = torch.where(torch.isfinite(d), safe, -1)
+        bd, order = torch.sort(d, dim=1, stable=True)
+        bi = ids.gather(1, order)
+
+        fd, fi = merge_sorted(fin_d, fin_i, bd, bi)
+        cd, ci = merge_sorted(pcand_d, pcand_i, bd, bi)
+        lv = live[:, None]
+        visited.copy_(torch.where(lv, vis2, visited))
+        cand_d.copy_(torch.where(lv, cd[:, :C], cand_d))
+        cand_i.copy_(torch.where(lv, ci[:, :C], cand_i))
+        fin_d.copy_(torch.where(lv, fd[:, :EF], fin_d))
+        fin_i.copy_(torch.where(lv, fi[:, :EF], fin_i))
+        calcs.copy_(torch.where(live, ncalcs, calcs))
+        hops.add_(live.to(hops.dtype))
+    return cand_d, cand_i, fin_d, fin_i, visited, hops, calcs
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's wrapper
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "repro_fused_traversal_f32": (ctypes.c_int, [_P] * 12 + [_I] * 12 + [_P]),
+    "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def fused_traversal_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
+                         cand_d, cand_i, fin_d, fin_i, visited, hops, calcs,
+                         *, fused_hops: int, max_hops: int,
+                         metric: str = "l2"):
+    """Launch `csrc/traversal.cu` on the current stream (in place).
+
+    Takes float32 tables with D_pad % 128 == 0, M0_pad <= 128, C <= 256
+    and EF <= C; raises on any other device, dtype, shape or layout."""
+    global LAUNCHES
+    dev = vectors.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_traversal_cuda needs CUDA tensors, got {dev}")
+    if vectors.dim() != 3:
+        raise ValueError("vectors must be partition-stacked [P, N_pad, D_pad]")
+    P, N, D = vectors.shape
+    M0 = l0_nbrs.shape[-1]
+    B = queries.shape[0]
+    L, C = cand_d.shape
+    EF = fin_d.shape[-1]
+    W = (N + 31) // 32
+    if D % 128 or not 0 < M0 <= MAX_M0 or not 0 < C <= MAX_C \
+            or not 0 < EF <= C or L != P * B:
+        raise ValueError(
+            f"unsupported shapes: D_pad={D} (multiple of 128), M0_pad={M0} "
+            f"(<= {MAX_M0}), C={C} (<= {MAX_C}), EF={EF} (<= C), "
+            f"L={L} (== P*B = {P * B})")
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    if fused_hops < 1:
+        raise ValueError("fused_hops must be >= 1")
+    f32, i32 = torch.float32, torch.int32
+    _check("vectors", vectors, f32, (P, N, D), dev)
+    _check("sqnorms", sqnorms, f32, (P, N), dev)
+    _check("l0_nbrs", l0_nbrs, i32, (P, N, M0), dev)
+    _check("queries", queries, f32, (B, D), dev)
+    _check("qsq", qsq, f32, (B,), dev)
+    _check("cand_d", cand_d, f32, (L, C), dev)
+    _check("cand_i", cand_i, i32, (L, C), dev)
+    _check("fin_d", fin_d, f32, (L, EF), dev)
+    _check("fin_i", fin_i, i32, (L, EF), dev)
+    _check("visited", visited, i32, (L, W), dev)
+    _check("hops", hops, i32, (L,), dev)
+    _check("calcs", calcs, i32, (L,), dev)
+    if vectors.data_ptr() % 16 or queries.data_ptr() % 16:
+        raise ValueError("vectors and queries must be 16-byte aligned")
+    lib = _build.load("traversal", _SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.repro_fused_traversal_f32(
+        vectors.data_ptr(), sqnorms.data_ptr(), l0_nbrs.data_ptr(),
+        queries.data_ptr(), qsq.data_ptr(), cand_d.data_ptr(),
+        cand_i.data_ptr(), fin_d.data_ptr(), fin_i.data_ptr(),
+        visited.data_ptr(), hops.data_ptr(), calcs.data_ptr(),
+        dev.index or 0, L, B, N, D, M0, C, EF, W, fused_hops, max_hops,
+        METRICS[metric], stream)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"fused traversal launch failed: CUDA error "
+                           f"{err} ({msg})")
+    LAUNCHES += 1
+    return cand_d, cand_i, fin_d, fin_i, visited, hops, calcs
