@@ -10,37 +10,68 @@ Phases, each of which must pass (any failure raises and exits non-zero):
   1. card    — name and power limit from nvidia-smi; TF32 off.
   2. build   — nvcc builds every kernel under src/repro_torch/kernels/csrc
                for sm_90a (one nvcc per source, all started together).
-  3. kernel  — the fused layer-0 traversal kernel against its plain PyTorch
-               version on the card, at SIFT1M's table size: a seeded
-               synthetic graph of 1,000,000 integer-valued 128-d rows, 256
-               lanes, C=72, EF=40, max_hops=176, l2/ip/cosine at H in
-               {1, 4}, supersteps run to the end; every state tensor must
-               be bitwise equal after every superstep.
-  4. main    — the port's main path through its public entry points:
-               SearchService.build(partitioned, P=4, M=16,
-               ef_construction=100, fused_hops=4) over 32,768 integer-valued
-               128-d vectors on the card, then `serve_loop` over 8 batches
-               of 256 queries (k=10, ef=40) with rerank off and on, the
-               traversal launch counter reset just before and read just
-               after. Checks: recall@10 >= 0.95 against the exact backend
-               on the card, launches > 0, fused_hops=1 bitwise equal to
-               fused_hops=4, and a CPU copy (saved, then loaded with
-               device="cpu") bitwise equal to the card on one batch.
-  5. timing  — the kernel and its plain version at the main path's shapes,
-               replayed from the beam states of one main-path batch; the
-               bound is the bytes those supersteps must move over the
-               card's 3.35 TB/s.
+               Then three worker processes start building the quantized
+               indexes of phase 6 (uint8, int8 and pq partitioned, each
+               through SearchService.build on the card, then saved), while
+               phases 3 and 4's build run; phase 4 waits for them before
+               it serves, so no build competes with a timed batch.
+  3. kernel  — every kernel against its plain PyTorch version on the card
+               at SIFT1M's table size, 1,000,000 rows: the layer-0
+               traversal on a seeded synthetic graph of integer-valued
+               128-d float32 rows (l2/ip/cosine) and of its uint8 and int8
+               code rows (l2), at H in {1, 4}, 256 lanes, C=72, EF=40,
+               max_hops=176, supersteps run to the end, every state tensor
+               bitwise equal after every superstep; and pq_adc / pq_topk
+               (M=16, 256 queries, k=10) over 1,000,000 random code rows
+               with float-valued and integer-valued (tie-heavy) tables and
+               +inf padding rows, bitwise equal.
+  4. main    — the port's float32 main path through its public entry
+               points: SearchService.build(partitioned, P=4, M=16,
+               ef_construction=100, fused_hops=4) over 32,768
+               integer-valued 128-d vectors on the card, then `serve_loop`
+               over 8 batches of 256 queries (k=10, ef=40) with rerank off
+               and on, the traversal launch counter reset just before and
+               read just after. Checks: recall@10 >= 0.95 against the exact
+               backend on the card, launches > 0, fused_hops=1 bitwise
+               equal to fused_hops=4, and a CPU copy (saved, then loaded
+               with device="cpu") bitwise equal to the card on one batch.
+  5. timing  — the traversal kernel and its plain version at the main
+               path's shapes, replayed from the beam states of one
+               main-path batch; the bound is the bytes those supersteps
+               must move over the card's 3.35 TB/s.
+  6. quant   — the quantized paths over the same vectors and queries,
+               each index loaded onto the card from its worker's save:
+               uint8 and int8 partitioned (P=4, fused_hops=4) through
+               `serve_loop`, rerank off and on — uint8 ids equal to the
+               float32 service's (byte data with max 255 quantizes to
+               itself), recall@10 gates, traversal launches > 0,
+               fused_hops=1 == 4 on every batch, a CPU copy bitwise equal
+               on one batch; pq (pq_m=16, codebooks fitted by the port's
+               PQQuantizer.fit and rounded to integers, so every LUT entry
+               is an exact integer): the exact backend through the pq_topk
+               kernel (launches > 0), its ids equal to a host numpy ADC
+               top-10 on one batch; partitioned with rerank off and on,
+               its rerank-off ids against the exact ADC scan's (overlap
+               gate), rerank on no worse than off; recall@10 against the
+               float32 exact backend is printed (PQ at 16 bytes a row
+               cannot resolve this data's neighbors: see PERF.md); a CPU
+               copy of each backend bitwise equal on one batch. Then the 8-bit
+               traversal and the PQ kernels are timed at these paths'
+               shapes against their plain versions and bounds.
 
-The line before the last is {"kernels": [...]} with each kernel's
-launches on the main path, error, times and bound; the last line is
-{"ok": true, "device": {...}}. Without CUDA, or without the repository's
-sources beside this file, it exits non-zero and prints no result.
+Each serving path prints QPS and p50/p99 per 256-query batch. The line
+before the last is {"kernels": [...]} with each kernel's launches on its
+path, error, times and bound; the last line is {"ok": true, "device":
+{...}}. Without CUDA, or without the repository's sources beside this
+file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
+import multiprocessing
 import subprocess
 import sys
 import tempfile
@@ -53,7 +84,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+# shared-memory lookups a second: 32 banks a clock on each of 132 SMs at
+# the 1.98 GHz boost clock (Hopper white paper); a floor for the PQ kernels
+SMEM_LOOKUPS_PER_S = 32 * 132 * 1.98e9
 DEVICE = "cuda"
+N_MAIN, N_QUERIES, BATCH, PQ_M = 32768, 2048, 256, 16
+# least share of the exact ADC scan's top-10 the PQ graph search must find
+PQ_OVERLAP_GATE = 0.90
+HNSW_M, HNSW_EFC, P_MAIN = 16, 100, 4
 
 
 def check(cond, msg: str) -> None:
@@ -76,8 +114,58 @@ def events_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+def median_ms(fn, reps: int = 5) -> float:
+    """Median device ms of fn() over `reps` runs after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    runs = sorted(events_ms(fn) for _ in range(reps))
+    return runs[len(runs) // 2]
+
+
+def main_data(n: int, n_queries: int):
+    """The main paths' integer-valued 128-d vectors and queries (0..255)."""
+    from repro_torch.data import VectorDataset
+
+    ds = VectorDataset(n, 128)
+    data = np.rint(ds.vectors()).astype(np.float32)
+    queries = np.rint(np.clip(ds.queries(n_queries), 0, 255)).astype(
+        np.float32)
+    return data, queries
+
+
+def partitioned_spec(**kw):
+    from repro_torch.api import IndexSpec
+    from repro_torch.core.hnsw_graph import HNSWConfig
+
+    return IndexSpec(backend="partitioned", num_partitions=P_MAIN,
+                     hnsw=HNSWConfig(M=HNSW_M, ef_construction=HNSW_EFC),
+                     keep_vectors=True, fused_hops=4, **kw)
+
+
+def build_worker(spec, path: str, n: int, device: str) -> float:
+    """Worker process: build one quantized partitioned index through
+    SearchService.build on `device` and save it to `path`; returns the
+    build's seconds. For pq, the codebooks are fitted by the port's
+    PQQuantizer.fit, rounded to integers and passed in on the spec."""
+    import dataclasses
+
+    from repro_torch.api import SearchService
+    from repro_torch.optim import PQQuantizer
+
+    data, _ = main_data(n, 0)
+    if spec.dtype == "pq":
+        fit = PQQuantizer.fit(data, spec.pq_m, seed=0)
+        spec = dataclasses.replace(
+            spec, pq_codebooks=np.rint(fit.codebooks).tolist())
+    t0 = time.perf_counter()
+    svc = SearchService.build(data, spec, device=device)
+    seconds = time.perf_counter() - t0
+    svc.save(path)
+    return seconds
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the kernel against its plain version at SIFT1M's table size
+# phase 3: every kernel against its plain version at SIFT1M's table size
 # ---------------------------------------------------------------------------
 
 
@@ -105,6 +193,19 @@ def synthetic_graph(n_rows: int, dim: int, m0: int, seed: int):
     return vec, sq, nbr[None].contiguous(), g
 
 
+def code_table(vec, sq, queries, dtype: str):
+    """8-bit code rows of the synthetic float rows: uint8 as they are,
+    int8 shifted by -128 (signed codes); code sqnorms with the +inf pads."""
+    if dtype == "uint8":
+        codes, qc = vec.to(torch.uint8), queries
+    else:
+        codes = (vec - 128).clamp(-127, 127).to(torch.int8)
+        qc = (queries - 128).clamp(-127, 127)
+    cf = codes.float()
+    csq = torch.where(torch.isinf(sq), sq, (cf * cf).sum(-1))
+    return codes.contiguous(), csq, qc.contiguous(), (qc * qc).sum(-1)
+
+
 def initial_state(vec, sq, queries, qsq, metric, C, EF, g):
     from repro_torch.core.search import bitmap_words
     from repro_torch.kernels.traversal import metric_distance
@@ -114,7 +215,7 @@ def initial_state(vec, sq, queries, qsq, metric, C, EF, g):
     n_valid = int(torch.isfinite(sq[0]).sum())
     ep = torch.randint(0, n_valid, (L,), generator=g, device=dev,
                        dtype=torch.int32)
-    ep_d = metric_distance(metric, (vec[0, ep.long()] * queries).sum(-1),
+    ep_d = metric_distance(metric, (vec[0, ep.long()].float() * queries).sum(-1),
                            sq[0, ep.long()], qsq)
     vis = torch.zeros((L, bitmap_words(vec.shape[1])), dtype=torch.int32,
                       device=dev)
@@ -134,10 +235,84 @@ def live_any(state, max_hops: int) -> bool:
     return bool(((cand_d[:, 0] < fin_d[:, -1]) & (hops < max_hops)).any())
 
 
-def kernel_phase(n_rows: int, seed: int) -> dict:
+def run_supersteps(tables, queries, qsq, metric, H, g, what: str) -> float:
+    """Kernel and plain version from one initial state to the end, bitwise
+    after every superstep; returns the max |fin_d| difference (0)."""
     from repro_torch.kernels import traversal as tr
 
-    B, D, M0, C, EF, MAX_HOPS = 256, 128, 32, 72, 40, 176
+    C, EF, MAX_HOPS = 72, 40, 176
+    vec, sq, nbr = tables
+    init = initial_state(vec, sq, queries, qsq, metric, C, EF, g)
+    sk = [t.clone() for t in init]
+    sr = [t.clone() for t in init]
+    steps, k_ms, r_ms = 0, 0.0, 0.0
+    while live_any(sk, MAX_HOPS) or live_any(sr, MAX_HOPS):
+        k_ms += events_ms(lambda: tr.fused_traversal_cuda(
+            vec, sq, nbr, queries, qsq, *sk, fused_hops=H,
+            max_hops=MAX_HOPS, metric=metric))
+        r_ms += events_ms(lambda: tr.fused_traversal_ref(
+            vec, sq, nbr, queries, qsq, *sr, fused_hops=H,
+            max_hops=MAX_HOPS, metric=metric))
+        steps += 1
+        for name, a, b in zip(("cand_d", "cand_i", "fin_d", "fin_i",
+                               "visited", "hops", "calcs"), sk, sr):
+            check(torch.equal(a, b),
+                  f"kernel != plain: {name} after superstep {steps} "
+                  f"({what}, {metric}, H={H})")
+    fin = torch.isfinite(sr[2])
+    log(f"[kernel] {what} {metric:6s} H={H}: bitwise equal over {steps} "
+        f"supersteps ({steps} kernel launches); hops mean "
+        f"{sk[5].float().mean():.1f} (max {int(sk[5].max())}), calcs mean "
+        f"{sk[6].float().mean():.1f}; kernel {k_ms / steps:.4f} "
+        f"ms/superstep, plain {r_ms / steps:.4f} ms/superstep")
+    return float((sk[2][fin] - sr[2][fin]).abs().max())
+
+
+def pq_kernel_check(n_rows: int, g) -> dict:
+    """pq_adc and pq_topk against their plain versions, bitwise."""
+    from repro_torch.kernels import qdist as qd
+
+    B, K = 256, 10
+    dev = torch.device(DEVICE)
+    luts = torch.rand((B, PQ_M, 256), generator=g, device=dev) * 50
+    codes = torch.randint(0, 256, (n_rows, PQ_M), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    xpad = torch.zeros(n_rows, device=dev)
+    xpad[n_rows - 16:] = float("inf")                      # 16 pad rows
+    worst = {"pq_adc": 0.0, "pq_topk": 0.0}
+    for xp in (None, xpad):
+        k_ms = events_ms(lambda: qd.pq_adc_cuda(luts, codes, xp))
+        got = qd.pq_adc_cuda(luts, codes, xp)
+        r_ms = events_ms(lambda: qd.pq_adc_ref(luts, codes, xp))
+        want = qd.pq_adc_ref(luts, codes, xp)
+        check(torch.equal(got, want), f"pq_adc != plain (xpad={xp is not None})")
+        fin = torch.isfinite(want)
+        worst["pq_adc"] = max(worst["pq_adc"],
+                              float((got[fin] - want[fin]).abs().max()))
+        log(f"[kernel] pq_adc {B} x {n_rows} x M={PQ_M} "
+            f"(xpad={xp is not None}): bitwise equal; kernel {k_ms:.3f} ms, "
+            f"plain {r_ms:.3f} ms")
+        del got, want, fin
+        for name, tab in (("float", luts), ("integer", torch.floor(luts / 10))):
+            k_ms = events_ms(lambda: qd.pq_topk_cuda(tab, codes, xp, k=K))
+            gv, gi = qd.pq_topk_cuda(tab, codes, xp, k=K)
+            r_ms = events_ms(lambda: qd.pq_topk_ref(tab, codes, xp, k=K))
+            wv, wi = qd.pq_topk_ref(tab, codes, xp, k=K)
+            check(torch.equal(gv, wv) and torch.equal(gi, wi),
+                  f"pq_topk != plain ({name} tables, xpad={xp is not None})")
+            if xp is not None:
+                check(int(gi.max()) < n_rows - 16, "pq_topk returned a pad row")
+            worst["pq_topk"] = max(worst["pq_topk"],
+                                   float((gv - wv).abs().max()))
+            log(f"[kernel] pq_topk {B} x {n_rows} x M={PQ_M}, k={K}, {name} "
+                f"tables (xpad={xp is not None}): bitwise equal (ids and "
+                f"dists); kernel {k_ms:.3f} ms, plain {r_ms:.3f} ms")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def kernel_phase(n_rows: int, seed: int) -> dict:
+    B, D, M0 = 256, 128, 32
     t0 = time.perf_counter()
     vec, sq, nbr, g = synthetic_graph(n_rows, D, M0, seed)
     queries = torch.randint(0, 256, (B, D), generator=g, device=DEVICE,
@@ -147,40 +322,25 @@ def kernel_phase(n_rows: int, seed: int) -> dict:
     log(f"[kernel] synthetic graph: {n_rows} rows x {D} d "
         f"({vec.numel() * 4 / 2**20:.0f} MiB), M0_pad={M0}, "
         f"{time.perf_counter() - t0:.1f}s")
-    worst = 0.0
+    worst = {"float32": 0.0, "uint8": 0.0, "int8": 0.0}
     for metric in ("l2", "ip", "cosine"):
         for H in (1, 4):
-            init = initial_state(vec, sq, queries, qsq, metric, C, EF,
-                                 g)
-            sk = [t.clone() for t in init]
-            sr = [t.clone() for t in init]
-            steps, k_ms, r_ms = 0, 0.0, 0.0
-            while live_any(sk, MAX_HOPS) or live_any(sr, MAX_HOPS):
-                k_ms += events_ms(lambda: tr.fused_traversal_cuda(
-                    vec, sq, nbr, queries, qsq, *sk, fused_hops=H,
-                    max_hops=MAX_HOPS, metric=metric))
-                r_ms += events_ms(lambda: tr.fused_traversal_ref(
-                    vec, sq, nbr, queries, qsq, *sr, fused_hops=H,
-                    max_hops=MAX_HOPS, metric=metric))
-                steps += 1
-                for name, a, b in zip(("cand_d", "cand_i", "fin_d", "fin_i",
-                                       "visited", "hops", "calcs"), sk, sr):
-                    check(torch.equal(a, b),
-                          f"kernel != plain: {name} after superstep {steps} "
-                          f"({metric}, H={H})")
-            fin = torch.isfinite(sr[2])
-            worst = max(worst, float((sk[2][fin] - sr[2][fin]).abs().max()))
-            log(f"[kernel] {metric:6s} H={H}: bitwise equal over {steps} "
-                f"supersteps ({steps} kernel launches); hops mean {sk[5].float().mean():.1f} "
-                f"(max {int(sk[5].max())}), calcs mean "
-                f"{sk[6].float().mean():.1f}; kernel "
-                f"{k_ms / steps:.4f} ms/superstep, plain "
-                f"{r_ms / steps:.4f} ms/superstep")
-    return {"max_abs_err": worst}
+            worst["float32"] = max(worst["float32"], run_supersteps(
+                (vec, sq, nbr), queries, qsq, metric, H, g, "float32"))
+    for dtype in ("uint8", "int8"):
+        codes, csq, qc, qcsq = code_table(vec, sq, queries, dtype)
+        for H in (1, 4):
+            worst[dtype] = max(worst[dtype], run_supersteps(
+                (codes, csq, nbr), qc, qcsq, "l2", H, g, dtype))
+        del codes, csq
+    del vec, sq, nbr
+    torch.cuda.empty_cache()
+    worst.update(pq_kernel_check(n_rows, g))
+    return worst
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the float32 main path
 # ---------------------------------------------------------------------------
 
 
@@ -189,104 +349,113 @@ def recall_at(ids: np.ndarray, gt: np.ndarray) -> float:
     return hit / gt.size
 
 
-def main_phase(n: int, n_queries: int, batch: int) -> dict:
+def answer(svc, q, h=None, rerank=False):
+    """One search with stats, on the host; `h` overrides fused_hops."""
     import dataclasses
 
-    from repro_torch.api import IndexSpec, SearchRequest, SearchService
-    from repro_torch.core.hnsw_graph import HNSWConfig
-    from repro_torch.data import VectorDataset
-    from repro_torch.kernels import traversal as tr
+    from repro_torch.api import SearchRequest
+
+    be = svc.backend
+    old = be.spec
+    if h is not None:
+        be.spec = dataclasses.replace(old, fused_hops=h)
+    try:
+        r = svc.search(SearchRequest(q, k=10, ef=40, rerank=rerank,
+                                     with_stats=True))
+        return [None if t is None else t.cpu()
+                for t in (r.ids, r.dists, r.stats.hops, r.stats.dist_calcs)]
+    finally:
+        be.spec = old
+
+
+def serve_paths(svc, queries, gt, what: str, gate: dict) -> dict:
+    """serve_loop rerank off and on with recall@10 against `gt`; `gate`
+    maps rerank -> the least recall, if any. Returns ids per rerank."""
     from repro_torch.launch.serve import serve_loop
 
-    ds = VectorDataset(n, 128)
-    data = np.rint(ds.vectors()).astype(np.float32)
-    queries = np.rint(np.clip(ds.queries(n_queries), 0, 255)).astype(
-        np.float32)
-    spec = IndexSpec(backend="partitioned", num_partitions=4,
-                     hnsw=HNSWConfig(M=16, ef_construction=100),
-                     keep_vectors=True, fused_hops=4)
-    t0 = time.perf_counter()
-    svc = SearchService.build(data, spec, device=DEVICE)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    log(f"[main] build: {n} x 128 vectors, P=4, M=16, ef_construction=100 "
-        f"-> {build_s:.1f}s (host graph build + upload)")
+    n_batches = len(queries) // BATCH
+    ids_by = {}
+    for rerank in (False, True):
+        ids, st = serve_loop(svc, queries, BATCH, 10, 40, rerank=rerank,
+                             log=lambda m: log(f"[{what}] rerank={rerank} {m}"))
+        rec = recall_at(ids, gt)
+        log(f"[{what}] rerank={rerank}: recall@10 {rec:.4f}, QPS "
+            f"{st['qps']:.1f}, p50 {st['p50_ms']:.3f} ms, p99 "
+            f"{st['p99_ms']:.3f} ms per {BATCH}-query batch "
+            f"({n_batches} batches)")
+        if rerank in gate:
+            check(rec >= gate[rerank], f"{what}: recall@10 {rec:.4f} < "
+                                       f"{gate[rerank]} (rerank={rerank})")
+        ids_by[rerank] = ids
+    return ids_by
+
+
+def check_fused_hops(svc, queries, what: str) -> None:
+    hops = []
+    for i in range(0, len(queries), BATCH):
+        a4, a1 = answer(svc, queries[i:i + BATCH], 4), answer(
+            svc, queries[i:i + BATCH], 1)
+        for name, x, y in zip(("ids", "dists", "hops", "dist_calcs"), a4, a1):
+            check(torch.equal(x, y), f"{what}: fused_hops=1 != 4: {name}, "
+                                     f"batch {i // BATCH}")
+        hops.append(int(a4[2].sum()))
+    log(f"[{what}] fused_hops=1 == fused_hops=4 bitwise on {len(queries)} "
+        f"queries; layer-0 hops per batch (summed over partitions) mean "
+        f"{np.mean(hops):.0f}")
+
+
+def check_cpu_copy(svc, cpu, q0, what: str, reranks=(False, True)) -> None:
+    """The card's and a CPU copy's answers to one batch, bitwise: ids and
+    dists, and hops and dist_calcs where the backend counts them; rerank
+    as `reranks` lists it (the exact backend has none)."""
+    graph = svc.backend.uses_graph
+    reranks = reranks if graph else (False,)
+    for rerank in reranks:
+        rc, rg = answer(cpu, q0, rerank=rerank), answer(svc, q0, rerank=rerank)
+        for name, x, y in zip(("ids", "dists", "hops", "dist_calcs"), rc, rg):
+            if x is None and y is None:
+                continue
+            check(x is not None and y is not None and torch.equal(x, y),
+                  f"{what}: CPU != card: {name} (rerank={rerank})")
+    log(f"[{what}] CPU copy (save -> load device='cpu') bitwise equal to the "
+        f"card on one {len(q0)}-query batch, rerank "
+        f"{' and '.join('on' if r else 'off' for r in reranks)}")
+
+
+def main_phase(svc, data, queries) -> dict:
+    from repro_torch.api import IndexSpec, SearchRequest, SearchService
+    from repro_torch.kernels import traversal as tr
 
     exact = SearchService.build(data, IndexSpec(backend="exact"),
                                 device=DEVICE)
     gt = np.concatenate([
-        exact.search(SearchRequest(queries[i:i + batch], k=10)).ids.cpu()
-        .numpy() for i in range(0, n_queries, batch)])
-
-    n_batches = n_queries // batch
+        exact.search(SearchRequest(queries[i:i + BATCH], k=10)).ids.cpu()
+        .numpy() for i in range(0, len(queries), BATCH)])
+    n_batches = len(queries) // BATCH
     tr.LAUNCHES = 0
-    for rerank in (False, True):
-        before = tr.LAUNCHES
-        ids, st = serve_loop(svc, queries, batch, 10, 40, rerank=rerank,
-                             log=lambda m: log(f"[main] rerank={rerank} {m}"))
-        launches = tr.LAUNCHES - before
-        rec = recall_at(ids, gt)
-        log(f"[main] rerank={rerank}: recall@10 {rec:.4f}, QPS "
-            f"{st['qps']:.1f}, p50 {st['p50_ms']:.3f} ms, p99 "
-            f"{st['p99_ms']:.3f} ms per {batch}-query batch, traversal "
-            f"launches {launches} ({launches / n_batches:.2f} per batch)")
-        check(rec >= 0.95, f"recall@10 {rec:.4f} < 0.95 (rerank={rerank})")
-    main_launches = tr.LAUNCHES
-    check(main_launches > 0, "the main path launched no traversal kernel")
-
-    # hops per batch and the fused_hops=1 == fused_hops=4 contract
-    def answer(h, q):
-        be = svc.backend
-        old = be.spec
-        be.spec = dataclasses.replace(old, fused_hops=h)
-        try:
-            r = svc.search(SearchRequest(q, k=10, ef=40, with_stats=True))
-            return [t.cpu() for t in (r.ids, r.dists, r.stats.hops,
-                                      r.stats.dist_calcs)]
-        finally:
-            be.spec = old
-
-    hops = []
-    for i in range(0, n_queries, batch):
-        a4, a1 = answer(4, queries[i:i + batch]), answer(1, queries[i:i + batch])
-        for name, x, y in zip(("ids", "dists", "hops", "dist_calcs"), a4, a1):
-            check(torch.equal(x, y), f"fused_hops=1 != 4: {name}, batch "
-                                     f"{i // batch}")
-        hops.append(int(a4[2].sum()))
-    log(f"[main] fused_hops=1 == fused_hops=4 bitwise on {n_queries} "
-        f"queries; layer-0 hops per batch (summed over partitions) mean "
-        f"{np.mean(hops):.0f}")
-
-    # the CPU copy: save, load with device="cpu", one batch bitwise
+    ids_by = serve_paths(svc, queries, gt, "main", {False: 0.95, True: 0.95})
+    launches = tr.LAUNCHES
+    log(f"[main] traversal launches {launches} "
+        f"({launches / (2 * n_batches):.2f} per batch)")
+    check(launches > 0, "the main path launched no traversal kernel")
+    check_fused_hops(svc, queries, "main")
     with tempfile.TemporaryDirectory() as tmp:
         svc.save(tmp)
         cpu = SearchService.load(tmp, device="cpu")
-    q0 = queries[:batch]
-    for rerank in (False, True):
-        rc = cpu.search(SearchRequest(q0, k=10, ef=40, rerank=rerank,
-                                      with_stats=True))
-        rg = svc.search(SearchRequest(q0, k=10, ef=40, rerank=rerank,
-                                      with_stats=True))
-        for name in ("ids", "dists"):
-            check(torch.equal(getattr(rc, name), getattr(rg, name).cpu()),
-                  f"CPU != card: {name} (rerank={rerank})")
-        check(torch.equal(rc.stats.hops, rg.stats.hops.cpu())
-              and torch.equal(rc.stats.dist_calcs, rg.stats.dist_calcs.cpu()),
-              f"CPU != card: stats (rerank={rerank})")
-    log(f"[main] CPU copy (save -> load device='cpu') bitwise equal to the "
-        f"card on one {batch}-query batch, rerank off and on")
-    return {"launches": main_launches, "svc": svc, "queries": q0}
+    check_cpu_copy(svc, cpu, queries[:BATCH], "main")
+    return {"launches": launches, "gt": gt, "ids": ids_by}
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernel timing at the main path's shapes
+# phase 5: traversal timing at a main path's shapes
 # ---------------------------------------------------------------------------
 
 
-def timing_phase(svc, queries, reps: int = 5) -> dict:
-    """Replay the layer-0 supersteps of one main-path batch: record each
-    superstep's input state, then time the kernel and the plain version
-    from those states (device time, CUDA events, median of `reps`)."""
+def timing_phase(svc, queries, what: str, reps: int = 5) -> dict:
+    """Replay the layer-0 supersteps of one batch of `svc`'s main path:
+    record each superstep's input state, then time the kernel and the
+    plain version from those states (device time, CUDA events, median of
+    `reps`). `queries` are in the index's space (codes for uint8/int8)."""
     from repro_torch.core import search as cs
     from repro_torch.kernels import traversal as tr
 
@@ -296,14 +465,16 @@ def timing_phase(svc, queries, reps: int = 5) -> dict:
     q = cs.prepare_queries(queries, d_pad, db.vectors.device)
     B = q.shape[0]
     lane = torch.arange(P * B, device=q.device)
+    part = lane // B
     qsq = (q * q).sum(-1)
+    dist = cs._lane_distance_fn(db, part, q[lane % B], qsq[lane % B],
+                                p.metric)
     # host clock around each stage of one batch (each ends synchronized)
     split = {}
     for _ in range(3):                     # the last of 3 repeats is kept
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ep, ep_d, _ = cs._greedy_upper(db, lane // B, q[lane % B],
-                                       qsq[lane % B], p)
+        ep, ep_d, _ = cs._greedy_upper(db, part, dist, p)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         cs._search_layer0(db, q, qsq, ep, ep_d, p)
@@ -340,15 +511,14 @@ def timing_phase(svc, queries, reps: int = 5) -> dict:
             outs.append(work)
         return per_step, outs
 
-    launches_before = tr.LAUNCHES
     k_ms, k_out = time_fn(tr.fused_traversal_cuda)
     r_ms, r_out = time_fn(tr.fused_traversal_ref)
-    tr.LAUNCHES = launches_before          # timing launches do not count
     for i, (a, b) in enumerate(zip(k_out, r_out)):
         check(all(torch.equal(x, y) for x, y in zip(a, b)),
-              f"kernel != plain at the main path's shapes, superstep {i}")
+              f"{what}: kernel != plain at the path's shapes, superstep {i}")
     # bytes each superstep must move, from this batch's own data
     D, M0 = d_pad, db.l0_nbrs.shape[-1]
+    row_bytes = D * db.vectors.element_size()
     C, EF = p.cand_size, p.ef
     L = P * B
     bytes_ = flops = 0
@@ -356,7 +526,7 @@ def timing_phase(svc, queries, reps: int = 5) -> dict:
         dh = int((nxt[5] - st[5]).sum())
         dc = int((nxt[6] - st[6]).sum())
         bytes_ += (dh * 2 * 4 * M0          # neighbor rows + visited words
-                   + dc * (4 * D + 4)       # active rows + their sqnorms
+                   + dc * (row_bytes + 4)   # active rows + their sqnorms
                    + L * (C + EF) * 8 * 2   # beam state in and out
                    + B * (4 * D + 4))       # queries
         flops += dc * 2 * D
@@ -365,25 +535,230 @@ def timing_phase(svc, queries, reps: int = 5) -> dict:
     out = {"steps": steps, "ms": sum(k_ms) / steps, "plain_ms": sum(r_ms) / steps,
            "bound_ms": bound_ms, "bytes_per_step": bytes_ / steps,
            "lanes": L, "H": H, **split}
-    log(f"[timing] main-path shapes: L={L} lanes (P={P} x B={B}), "
-        f"N_pad={db.vectors.shape[1]}, D_pad={D}, M0_pad={M0}, C={C}, "
-        f"EF={EF}, H={H}: {steps} supersteps; kernel {out['ms']:.4f} ms, "
-        f"plain {out['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms "
-        f"({out['bytes_per_step'] / 1e6:.3f} MB) per superstep")
-    log(f"[timing] one {B}-query batch, host clock: upper-layer descent "
-        f"{split['upper_ms']:.3f} ms, layer-0 loop {split['layer0_ms']:.3f} "
-        f"ms ({steps} supersteps, kernel {sum(k_ms):.3f} ms of it)")
+    log(f"[timing] {what} shapes: L={L} lanes (P={P} x B={B}), "
+        f"N_pad={db.vectors.shape[1]}, D_pad={D} ({db.vectors.dtype}), "
+        f"M0_pad={M0}, C={C}, EF={EF}, H={H}: {steps} supersteps; kernel "
+        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({out['bytes_per_step'] / 1e6:.3f} MB) per "
+        f"superstep")
+    log(f"[timing] {what}: one {B}-query batch, host clock: upper-layer "
+        f"descent {split['upper_ms']:.3f} ms, layer-0 loop "
+        f"{split['layer0_ms']:.3f} ms ({steps} supersteps, kernel "
+        f"{sum(k_ms):.3f} ms of it)")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the quantized paths
+# ---------------------------------------------------------------------------
+
+
+def scalar_phase(path: str, dtype: str, queries, main_out) -> dict:
+    """A uint8 / int8 partitioned index loaded onto the card from its
+    worker's save: serving, the uint8 == float32 check, fused_hops, the CPU
+    copy, and its traversal timing."""
+    from repro_torch.api import SearchService
+    from repro_torch.kernels import traversal as tr
+
+    svc = SearchService.load(path, device=DEVICE)
+    quant = svc.quantizer
+    log(f"[{dtype}] loaded: scale {quant.scale!r}, zero-point "
+        f"{quant.zero_point}, rows {tuple(svc.backend.pdb.db.vectors.shape)} "
+        f"{svc.backend.pdb.db.vectors.dtype}")
+    # byte data with max 255 quantizes to itself only for uint8
+    exact_bytes = dtype == "uint8" and quant.scale == 1.0 \
+        and quant.zero_point == 0
+    gate = {False: 0.95, True: 0.95} if dtype == "uint8" else {True: 0.90}
+    tr.LAUNCHES = 0
+    ids_by = serve_paths(svc, queries, main_out["gt"], dtype, gate)
+    launches = tr.LAUNCHES
+    log(f"[{dtype}] traversal launches {launches} "
+        f"({launches / (2 * (len(queries) // BATCH)):.2f} per batch)")
+    check(launches > 0, f"the {dtype} path launched no traversal kernel")
+    if dtype == "uint8":
+        if exact_bytes:
+            for rerank in (False, True):
+                check(np.array_equal(ids_by[rerank], main_out["ids"][rerank]),
+                      f"uint8 ids != float32 ids (rerank={rerank})")
+            log("[uint8] ids equal to the float32 service's on all "
+                f"{len(queries)} queries, rerank off and on")
+        else:
+            log("[uint8] the data's max is not 255: uint8 is gated on "
+                "recall only")
+    check_fused_hops(svc, queries, dtype)
+    # int8's decoded rows are not integers (scale 255/127): the rerank's
+    # float sums may differ between the card and the CPU in the last ulp
+    cpu = SearchService.load(path, device="cpu")
+    check_cpu_copy(svc, cpu, queries[:BATCH], dtype,
+                   (False, True) if exact_bytes else (False,))
+    timing = timing_phase(svc, quant.encode_f32(queries[:BATCH]), dtype)
+    return {"launches": launches, "timing": timing}
+
+
+def pq_split(svc, q) -> dict:
+    """Host clock around the stages of one PQ partitioned batch (each ends
+    synchronized): LUT build, upper-layer descent, hop-stepped layer 0."""
+    from repro_torch.core import search as cs
+    from repro_torch.optim import build_pq_lut
+
+    db = svc.backend.pdb.db
+    P = db.vectors.shape[0]
+    p = svc.backend.params(10, 40).resolve(db.l0_nbrs.shape[-1])
+    qt = torch.as_tensor(q, device=DEVICE)
+    B = qt.shape[0]
+    lane = torch.arange(P * B, device=DEVICE)
+    part = lane // B
+    out = {}
+    for _ in range(3):                     # the last of 3 repeats is kept
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lut = build_pq_lut(qt, svc.backend.codebooks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dist = cs._lane_distance_fn(db, part, lut=lut[lane % B])
+        ep, ep_d, _ = cs._greedy_upper(db, part, dist, p)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _, _, hops, _ = cs._search_layer0_pq(db, part, dist, ep, ep_d, p)
+        torch.cuda.synchronize()
+        out = {"lut_ms": (t1 - t0) * 1e3, "upper_ms": (t2 - t1) * 1e3,
+               "layer0_ms": (time.perf_counter() - t2) * 1e3,
+               "layer0_iterations": int(hops.max())}
+    log(f"[pq] one {B}-query partitioned batch, host clock: LUT build "
+        f"{out['lut_ms']:.3f} ms, upper-layer descent {out['upper_ms']:.3f} "
+        f"ms, hop-stepped layer 0 {out['layer0_ms']:.3f} ms "
+        f"({out['layer0_iterations']} hop iterations, plain torch ops)")
+    return out
+
+
+def pq_timing(exact, q, reps: int = 5) -> dict:
+    """pq_topk and pq_adc against their plain versions at the exact PQ
+    path's shapes (one batch's LUTs over the whole code table)."""
+    from repro_torch.kernels import qdist as qd
+    from repro_torch.optim import build_pq_lut
+
+    be = exact.backend
+    qt = torch.as_tensor(q, device=DEVICE)
+    t0 = time.perf_counter()
+    luts = build_pq_lut(qt, be.codebooks)
+    torch.cuda.synchronize()
+    lut_host_ms = (time.perf_counter() - t0) * 1e3
+    codes = be.codes
+    (bq, m, _), bx, k = luts.shape, codes.shape[0], 10
+    out = {}
+    for name, kern, plain, out_bytes in (
+            ("pq_topk", lambda: qd.pq_topk_cuda(luts, codes, k=k),
+             lambda: qd.pq_topk_ref(luts, codes, k=k), bq * k * 8),
+            ("pq_adc", lambda: qd.pq_adc_cuda(luts, codes),
+             lambda: qd.pq_adc_ref(luts, codes), bq * bx * 4)):
+        got, want = kern(), plain()
+        same = (torch.equal(got, want) if name == "pq_adc" else
+                all(torch.equal(a, b) for a, b in zip(got, want)))
+        check(same, f"{name} != plain at the exact PQ path's shapes")
+        bytes_ = luts.numel() * 4 + codes.numel() + out_bytes
+        adds = bq * bx * m
+        bound_ms = max(bytes_ / HBM_BYTES_PER_S, adds / FP32_FLOPS) * 1e3
+        out[name] = {"ms": median_ms(kern, reps),
+                     "plain_ms": median_ms(plain, reps),
+                     "bound_ms": bound_ms,
+                     "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
+                                  >= adds / FP32_FLOPS else "operations"),
+                     "lookup_floor_ms": adds / SMEM_LOOKUPS_PER_S * 1e3}
+        log(f"[timing] {name} at the exact PQ path's shapes ({bq} queries x "
+            f"{bx} rows x M={m}): kernel {out[name]['ms']:.4f} ms, plain "
+            f"{out[name]['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({out[name]['bound_by']}: {bytes_ / 1e6:.3f} MB, {adds / 1e6:.1f}M "
+            f"fp32 adds), shared-memory lookup floor "
+            f"{out[name]['lookup_floor_ms']:.5f} ms")
+    log(f"[timing] exact PQ batch: LUT build {lut_host_ms:.3f} ms (host "
+        f"clock), pq_topk {out['pq_topk']['ms']:.4f} ms (device)")
+    return out
+
+
+def adc_topk_np(codes, codebooks, q, k: int = 10):
+    """The exact ADC top-k on the host in numpy, independent of the port:
+    with integer codebooks and queries every table entry and sum is an
+    exact integer, so any summation order gives the same distances, and
+    the stable argsort gives the lower row first among ties."""
+    m, _, dsub = codebooks.shape
+    adc = np.zeros((len(q), len(codes)), np.float32)
+    for mi in range(m):
+        sub = q[:, mi * dsub:(mi + 1) * dsub]
+        lut = ((sub[:, None, :] - codebooks[mi][None]) ** 2).sum(-1)
+        adc += lut[:, codes[:, mi]]
+    return np.argsort(adc, axis=1, kind="stable")[:, :k]
+
+
+def pq_phase(path: str, data, queries, gt) -> dict:
+    from repro_torch.api import IndexSpec, SearchService
+    from repro_torch.kernels import qdist as qd
+
+    spq = SearchService.load(path, device=DEVICE)
+    cbs = np.asarray(spq.spec.pq_codebooks, np.float32)
+    check(np.array_equal(cbs, np.rint(cbs)), "pq codebooks are not integers")
+    log(f"[pq] loaded: pq_m={spq.spec.pq_m}, integer codebooks, code rows "
+        f"{tuple(spq.backend.pdb.db.vectors.shape)}")
+    t0 = time.perf_counter()
+    exact = SearchService.build(
+        data, IndexSpec(backend="exact", dtype="pq", pq_m=PQ_M,
+                        pq_codebooks=spq.spec.pq_codebooks), device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"[pq] exact backend build (encode {len(data)} rows): "
+        f"{time.perf_counter() - t0:.1f}s")
+    from repro_torch.launch.serve import serve_loop
+
+    qd.TOPK_LAUNCHES = 0
+    ids, st = serve_loop(exact, queries, BATCH, 10, 40,
+                         log=lambda m: log(f"[pq-exact] {m}"))
+    launches = qd.TOPK_LAUNCHES
+    log(f"[pq-exact] recall@10 {recall_at(ids, gt):.4f} against the float32 "
+        f"exact backend, QPS {st['qps']:.1f}, p50 {st['p50_ms']:.3f} ms, p99 "
+        f"{st['p99_ms']:.3f} ms per {BATCH}-query batch; pq_topk launches "
+        f"{launches}")
+    check(launches > 0, "the exact PQ path launched no pq_topk kernel")
+    q0 = queries[:BATCH]
+    check(np.array_equal(ids[:BATCH], adc_topk_np(exact.backend.raw, cbs, q0)),
+          "pq exact ids != the host numpy ADC top-10")
+    rec_err = float(np.mean(((data - spq.quantizer.decode(exact.backend.raw))
+                             ** 2).sum(1)))
+    log(f"[pq-exact] ids equal to a host numpy ADC top-10 on one batch; "
+        f"mean squared reconstruction error {rec_err:.1f} a row")
+    by = serve_paths(spq, queries, gt, "pq", {})
+    overlap = recall_at(by[False], ids)
+    rec = {r: recall_at(by[r], gt) for r in (False, True)}
+    log(f"[pq] partitioned rerank off against the exact ADC scan: top-10 "
+        f"overlap {overlap:.4f}")
+    check(overlap >= PQ_OVERLAP_GATE, f"pq partitioned finds {overlap:.4f} "
+                                      f"of the exact ADC top-10 (< "
+                                      f"{PQ_OVERLAP_GATE})")
+    check(rec[True] >= rec[False], "pq rerank lowered recall@10")
+    check_cpu_copy(spq, SearchService.load(path, device="cpu"), q0, "pq")
+    with tempfile.TemporaryDirectory() as tmp:
+        exact.save(tmp)
+        exact_cpu = SearchService.load(tmp, device="cpu")
+    check_cpu_copy(exact, exact_cpu, q0, "pq-exact")
+    split = pq_split(spq, q0)
+    timing = pq_timing(exact, q0)
+    return {"launches": launches, "timing": timing, "split": split}
 
 
 # ---------------------------------------------------------------------------
 
 
+def kernel_row(name, source, replaces, launches, err, timing, bound_by):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": timing and timing["ms"],
+            "plain_ms": timing and timing["plain_ms"],
+            "bound_ms": timing and timing["bound_ms"], "bound_by": bound_by,
+            "library_ms": None}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernel,main",
-                    help="comma list of kernel,main (card and build "
-                         "always run)")
+    ap.add_argument("--phases", default="kernel,main,quant",
+                    help="comma list of kernel,main,quant (card and build "
+                         "always run; quant needs main)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -396,6 +771,9 @@ def main(argv=None) -> int:
               "smoke test needs a CUDA device", file=sys.stderr)
         return 2
     t_all = time.perf_counter()
+    phases = set(args.phases.split(","))
+    if "quant" in phases:
+        phases.add("main")
 
     # 1. card
     smi = subprocess.run(
@@ -408,6 +786,7 @@ def main(argv=None) -> int:
         f"CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN")
 
     # 2. build
+    from repro_torch.api import SearchService
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -417,31 +796,72 @@ def main(argv=None) -> int:
         for line in text.strip().splitlines():
             log(f"[build] {name}: {line.strip()}")
 
-    phases = set(args.phases.split(","))
-    kern = {"max_abs_err": None}
-    if "kernel" in phases:
-        kern = kernel_phase(1_000_000, seed=0)
-    main_out = timing = None
-    if "main" in phases:
-        main_out = main_phase(32768, 2048, 256)
-        timing = timing_phase(main_out["svc"], main_out["queries"])
+    kern = {}
+    main_out = timing = quant = None
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ProcessPoolExecutor(
+                max_workers=3,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+        paths = {dt: str(Path(tmp) / dt) for dt in ("uint8", "int8", "pq")}
+        # the workers see sys.path (so repro_torch) through spawn's
+        # preparation data
+        builds = ({dt: pool.submit(build_worker,
+                                   partitioned_spec(dtype=dt, pq_m=PQ_M),
+                                   path, N_MAIN, DEVICE)
+                   for dt, path in paths.items()} if "quant" in phases else {})
+        # 3. kernel
+        if "kernel" in phases:
+            kern = kernel_phase(1_000_000, seed=0)
+        # 4. main
+        if "main" in phases:
+            data, queries = main_data(N_MAIN, N_QUERIES)
+            t0 = time.perf_counter()
+            svc = SearchService.build(data, partitioned_spec(), device=DEVICE)
+            torch.cuda.synchronize()
+            log(f"[main] build: {N_MAIN} x 128 vectors, P={P_MAIN}, "
+                f"M={HNSW_M}, ef_construction={HNSW_EFC} -> "
+                f"{time.perf_counter() - t0:.1f}s (host graph build + upload"
+                f"{', beside the quantized builds' if builds else ''})")
+            t0 = time.perf_counter()
+            for dt, fut in builds.items():
+                log(f"[build] {dt} partitioned index: SearchService.build "
+                    f"{fut.result():.1f}s in its worker (saved)")
+            if builds:
+                log(f"[build] waited {time.perf_counter() - t0:.1f}s for the "
+                    f"quantized builds")
+            main_out = main_phase(svc, data, queries)
+            # 5. timing
+            timing = timing_phase(svc, queries[:BATCH], "main")
+            # 6. quant
+            if "quant" in phases:
+                quant = {dt: scalar_phase(paths[dt], dt, queries, main_out)
+                         for dt in ("uint8", "int8")}
+                quant["pq"] = pq_phase(paths["pq"], data, queries,
+                                       main_out["gt"])
 
-    row = {
-        "name": "fused_traversal",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/traversal.cu",
-        "replaces": "src/repro/kernels/traversal.py:234",
-        "launches": main_out["launches"] if main_out else 0,
-        "max_abs_err": kern["max_abs_err"],
-        "ms": timing["ms"] if timing else None,
-        "plain_ms": timing["plain_ms"] if timing else None,
-        "bound_ms": timing["bound_ms"] if timing else None,
-        "bound_by": "bytes",
-        "library_ms": None,
-    }
+    trav = ("src/repro_torch/kernels/csrc/traversal.cu",
+            "src/repro/kernels/traversal.py:234")
+    qsrc = "src/repro_torch/kernels/csrc/qdist.cu"
+    rows = [kernel_row("fused_traversal", *trav,
+                       main_out["launches"] if main_out else 0,
+                       kern.get("float32"), timing, "bytes")]
+    for dt in ("uint8", "int8"):
+        q = quant[dt] if quant else None
+        rows.append(kernel_row(f"fused_traversal_{dt}", *trav,
+                               q["launches"] if q else 0, kern.get(dt),
+                               q and q["timing"], "bytes"))
+    pq = quant["pq"] if quant else None
+    for name, replaces in (("pq_topk", "src/repro/kernels/qdist.py:310"),
+                           ("pq_adc", "src/repro/kernels/qdist.py:240")):
+        t = pq and pq["timing"][name]
+        # pq_adc is on no path of the system (the exact backend fuses the
+        # top-k); it runs only against its plain version
+        launches = pq["launches"] if pq and name == "pq_topk" else 0
+        rows.append(kernel_row(name, qsrc, replaces, launches, kern.get(name),
+                               t, t["bound_by"] if t else "operations"))
     log(f"[done] {time.perf_counter() - t_all:.1f}s")
     print(smi)
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

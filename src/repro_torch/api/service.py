@@ -12,11 +12,14 @@ CUDA device they raise. The on-disk layout is the reference's:
     <path>/index_manifest.json   (format version + IndexSpec)
     <path>/step_<N>/             (checkpoint steps; load opens the latest)
 
-so an index saved by either package loads into the other.
+so an index saved by either package loads into the other: version 1 for
+float32 and scalar-quantized indexes, version 3 for product-quantized
+ones (the manifest then carries the codebooks).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -34,6 +37,7 @@ from repro_torch.api.types import (
     SearchResponse,
 )
 from repro_torch.checkpoint import latest_step, save_checkpoint, step_dir
+from repro_torch.optim.compression import PQQuantizer, VectorQuantizer
 
 __all__ = ["SearchService", "MANIFEST_NAME", "read_step_leaves"]
 
@@ -57,6 +61,7 @@ class SearchService:
         self.backend = backend
         self.device = backend.device
         self.metric = _metrics.get_metric(spec.metric)
+        self.quantizer = spec.quantizer()
 
     # -- construction -------------------------------------------------------
 
@@ -65,7 +70,11 @@ class SearchService:
               device=None) -> "SearchService":
         """Build an index over raw vectors on `device` (default: the card).
         The metric's data preprocessing (cosine normalization) happens
-        here — backends only see metric-prepared vectors."""
+        here — backends only see metric-prepared vectors. A quantized spec
+        is fitted here and its state written back onto the spec (and so
+        into the manifest): uint8/int8 backends then receive codes; pq
+        backends receive the float32 rows, and pre-fitted codebooks on
+        the spec are reused."""
         device = resolve_device(device)
         spec = spec or IndexSpec()
         metric = _metrics.get_metric(spec.metric)     # validates the name
@@ -76,22 +85,45 @@ class SearchService:
                 f"are built with L2 geometry, so graph search under it is "
                 f"unreliable — use backend='exact', or normalize your data "
                 f"(then ip == cosine)")
-        spec.quantizer()                              # float32 only for now
         prepared = metric.prepare_data(np.asarray(vectors))
+        if spec.dtype != "float32":
+            if spec.metric != "l2":
+                raise ValueError(
+                    f"dtype={spec.dtype!r} supports metric='l2' only (the "
+                    f"paper's metric): code-space squared-L2 is a pure "
+                    f"rescaling of real-space squared-L2, which does not "
+                    f"hold for {spec.metric!r}")
+            if spec.dtype == "pq":
+                if spec.pq_codebooks is None:
+                    quant = PQQuantizer.fit(prepared, spec.pq_m,
+                                            seed=spec.hnsw.seed)
+                    spec = dataclasses.replace(
+                        spec, pq_codebooks=quant.to_json()["codebooks"])
+            else:
+                quant = VectorQuantizer.fit(prepared, spec.dtype)
+                spec = dataclasses.replace(spec, qscale=quant.scale,
+                                           qzero=quant.zero_point)
+                prepared = quant.encode(prepared)
         return cls(spec, backend_cls.build(prepared, spec, device))
 
     # -- serving ------------------------------------------------------------
 
     def search(self, request: SearchRequest) -> SearchResponse:
         """One batched request; accepts a raw query array as shorthand.
-        Results are tensors on the service's device."""
+        Results are tensors on the service's device. uint8/int8 queries
+        are encoded here, once, so every backend sees the same codes; pq
+        queries stay float32 (asymmetric distance)."""
         if not isinstance(request, SearchRequest):
             request = SearchRequest(queries=request)
         q = request.queries
+        scalar = self.quantizer is not None and self.spec.dtype != "pq"
+        if isinstance(q, torch.Tensor) and (self.metric.normalize_queries
+                                            or scalar):
+            q = q.cpu().numpy()
         if self.metric.normalize_queries:
-            if isinstance(q, torch.Tensor):
-                q = q.cpu().numpy()
             q = self.metric.prepare_queries(np.asarray(q))
+        if scalar:
+            q = self.quantizer.encode_f32(np.asarray(q))
         ids, dists, stats = self.backend.search(
             q, k=request.k, ef=request.ef, rerank=request.rerank,
             with_stats=request.with_stats)
@@ -106,7 +138,9 @@ class SearchService:
             prev = latest_step(path)
             step = 0 if prev is None else prev + 1
         out = save_checkpoint(path, step, self.backend.state_tree())
-        manifest = {"format_version": FORMAT_VERSION,
+        version = (PQ_FORMAT_VERSION if self.spec.dtype == "pq"
+                   else FORMAT_VERSION)
+        manifest = {"format_version": version,
                     "spec": self.spec.to_json(),
                     "latest_saved_step": step}
         with open(os.path.join(path, MANIFEST_NAME), "w") as f:
@@ -116,8 +150,9 @@ class SearchService:
     @classmethod
     def load(cls, path: str, *, device=None) -> "SearchService":
         """Re-open the latest committed version of a saved index on
-        `device` (default: the card). Indexes saved before the manifest
-        existed (bare step dirs) load as partitioned with default knobs."""
+        `device` (default: the card): format version 1 or 3. Indexes saved
+        before the manifest existed (bare step dirs) load as partitioned
+        with default knobs. Mutable (version 2) indexes are not ported."""
         device = resolve_device(device)
         manifest_path = os.path.join(path, MANIFEST_NAME)
         step = latest_step(path)
@@ -134,15 +169,15 @@ class SearchService:
         with open(manifest_path) as f:
             manifest = json.load(f)
         version = manifest.get("format_version")
-        if version in (2, PQ_FORMAT_VERSION):
-            kind = "mutable segmented" if version == 2 else "product-quantized"
+        if version == 2:
             raise NotImplementedError(
-                f"index at {path!r} is a {kind} index (format_version="
-                f"{version}), not yet ported; see ROADMAP.md")
-        if version != FORMAT_VERSION:
+                f"index at {path!r} is a mutable segmented index "
+                f"(format_version=2), not yet ported; see ROADMAP.md")
+        if version not in (FORMAT_VERSION, PQ_FORMAT_VERSION):
             raise ValueError(
                 f"index at {path!r} has format_version={version}; "
-                f"this build reads version {FORMAT_VERSION}")
+                f"this build reads versions {FORMAT_VERSION} and "
+                f"{PQ_FORMAT_VERSION}")
         spec = IndexSpec.from_json(manifest["spec"])
         if step is None:
             raise FileNotFoundError(

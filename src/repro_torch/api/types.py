@@ -6,8 +6,10 @@ results plus optional per-query statistics. `IndexSpec` keeps every field
 of the reference and the same JSON round-trip, so the port parses index
 manifests the reference wrote (and the reference parses the port's).
 
-This slice serves the float32 path only; a spec that asks for quantized
-or product-quantized storage raises NotImplementedError where it is used.
+`dtype` selects the stored rows: float32, scalar codes (uint8 / int8,
+with the fitted `qscale` / `qzero`) or product-quantized codes ("pq",
+with the fitted `pq_codebooks`). `SearchService.build` fits the quantizer
+and writes its state back onto the spec, so it rides the manifest.
 """
 
 from __future__ import annotations
@@ -16,14 +18,15 @@ import dataclasses
 from typing import Any
 
 from repro_torch.core.hnsw_graph import HNSWConfig
+from repro_torch.optim.compression import PQQuantizer, VectorQuantizer
 
 __all__ = ["IndexSpec", "SearchRequest", "SearchResponse", "QueryStats",
            "FORMAT_VERSION", "PQ_FORMAT_VERSION"]
 
 # Version of the on-disk index layout (manifest + checkpoint step dirs).
 FORMAT_VERSION = 1
-# Product-quantized indexes (dtype="pq") are written as version 3 by the
-# reference; the port recognises the number and refuses it for now.
+# Product-quantized indexes (dtype="pq") are written as version 3: the
+# manifest then carries the codebooks.
 PQ_FORMAT_VERSION = 3
 
 
@@ -35,9 +38,11 @@ class IndexSpec:
     backend : "exact" | "hnsw" | "partitioned" ported; "distributed" and
               "csd" raise NotImplementedError in this slice
     num_partitions : stage-1 sub-graph count (paper §4.1)
-    dtype   : "float32"; "uint8" / "int8" / "pq" are not yet ported
-    qscale / qzero / pq_m / pq_codebooks : quantizer state of the
-              reference's quantized specs (parsed and written back, unused)
+    dtype   : "float32" | "uint8" | "int8" | "pq" (metric "l2" only for
+              the quantized ones)
+    qscale / qzero : the fitted scalar quantizer (uint8 / int8)
+    pq_m / pq_codebooks : PQ subspaces and fitted codebooks; codebooks
+              passed in are reused by `SearchService.build`
     hnsw    : graph construction knobs (ignored by the exact backend)
     keep_vectors : retain the raw vectors beside the graph — needed for
               `SearchRequest.rerank`, and saved with the index
@@ -63,12 +68,25 @@ class IndexSpec:
     pq_codebooks: Any = None  # nested lists [pq_m][256][dsub], JSON-ready
 
     def quantizer(self):
-        """None for the float32 path; quantized storage is not ported."""
+        """The fitted quantizer (VectorQuantizer or PQQuantizer), or None
+        for the float32 path."""
         if self.dtype == "float32":
             return None
-        raise NotImplementedError(
-            f"dtype={self.dtype!r} (quantized storage) is not yet ported; "
-            f"see ROADMAP.md")
+        if self.dtype == "pq":
+            if self.pq_codebooks is None:
+                raise ValueError(
+                    "dtype='pq' spec has no fitted pq_codebooks — build PQ "
+                    "indexes through SearchService.build")
+            cb = self.pq_codebooks
+            dsub = len(cb[0][0])
+            return PQQuantizer.from_json(
+                {"m": self.pq_m, "dsub": dsub, "codebooks": cb})
+        if self.qscale is None or self.qzero is None:
+            raise ValueError(
+                f"dtype={self.dtype!r} spec has no fitted qscale/qzero — "
+                f"build quantized indexes through SearchService.build")
+        return VectorQuantizer(dtype=self.dtype, scale=float(self.qscale),
+                               zero_point=int(self.qzero))
 
     def to_json(self) -> dict:
         d = dataclasses.asdict(self)

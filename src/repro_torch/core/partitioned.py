@@ -19,10 +19,12 @@ import torch
 
 from repro_torch.core import hnsw_graph as hg
 from repro_torch.core.search import SearchParams, search_lanes
+from repro_torch.optim.compression import code_dtype
 
 __all__ = [
     "PartitionedDB",
     "build_partitioned_db",
+    "quantize_db_vectors",
     "search_partitioned",
     "search_partitioned_candidates",
     "merge_topk",
@@ -67,6 +69,36 @@ def build_partitioned_db(
     return PartitionedDB(db=stacked, num_partitions=num_partitions, dim=vectors.shape[1])
 
 
+def quantize_db_vectors(pdb: PartitionedDB, dtype: str,
+                        quant=None) -> PartitionedDB:
+    """Swap the stacked (numpy) DB's raw-data leaf for stored codes.
+
+    uint8/int8: the graphs were built over code-valued float32, so the
+    integer cast is exact and only the storage shrinks (4x for uint8).
+    dtype="pq" needs the fitted PQQuantizer: the graphs were built over
+    the original float32 rows (full-precision graph, PQ traversal) and
+    each [N_pad, D_pad] row becomes an [N_pad, pq_m] uint8 code row; pad
+    rows encode garbage but stay unreachable (no neighbor list points at
+    them, and their sqnorms keep the +inf marker). A no-op for float32 or
+    a leaf that already holds codes."""
+    if dtype == "float32":
+        return pdb
+    vecs = np.asarray(pdb.db.vectors)
+    if vecs.dtype == code_dtype(dtype) and (
+            dtype != "pq" or vecs.shape[-1] == quant.m):
+        return pdb
+    if dtype == "pq":
+        if quant is None:
+            raise ValueError("dtype='pq' needs the fitted PQQuantizer")
+        p_ax, n_pad, _ = vecs.shape
+        flat = vecs.reshape(p_ax * n_pad, -1)[:, :pdb.dim]
+        codes = quant.encode(np.ascontiguousarray(flat, np.float32))
+        db = pdb.db._replace(vectors=codes.reshape(p_ax, n_pad, quant.m))
+        return pdb._replace(db=db)
+    db = pdb.db._replace(vectors=vecs.astype(code_dtype(dtype)))
+    return pdb._replace(db=db)
+
+
 def merge_topk(ids, dists, k: int):
     """Stage-2 reduction: [..., P, K] -> top-k by distance (stable, so
     among equal distances the earlier partition wins)."""
@@ -81,7 +113,9 @@ def search_partitioned(pdb: PartitionedDB, queries, p: SearchParams,
                        lut=None):
     """Single-device two-stage search: every partition, then the merge.
 
-    Returns (ids [B, k], dists [B, k], stats [P, B]) with global ids."""
+    Returns (ids [B, k], dists [B, k], stats [P, B]) with global ids.
+    `lut` ([B, M, 256]) is the per-query ADC table of a dtype="pq" DB,
+    shared by every partition (one code space per index)."""
     ids, ds, stats = search_lanes(pdb.db, queries, p, lut)
     out_i, out_d = merge_topk(ids.transpose(0, 1), ds.transpose(0, 1), p.k)
     return out_i, out_d, stats

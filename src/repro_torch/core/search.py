@@ -15,10 +15,24 @@ instead of vmapped:
 
 Upper layers run a greedy descent (ef = 1) as batched torch ops with a
 per-lane `running` mask (partitions have different `max_level`). Layer 0
-always runs the superstep loop: `fused_layer0` advances every lane by
-H = max(fused_hops, 1) hops per call — the CUDA kernel on the card, its
-plain version on the CPU — until no lane is live. The reference's own
-contract makes the result bit-identical at every `fused_hops`.
+of a float32 or 8-bit DB always runs the superstep loop: `fused_layer0`
+advances every lane by H = max(fused_hops, 1) hops per call — the CUDA
+kernel on the card, its plain version on the CPU — until no lane is live.
+The reference's own contract makes the result bit-identical at every
+`fused_hops`.
+
+Quantized DBs (IndexSpec.dtype uint8/int8): `db.vectors` holds integer
+codes and the queries are code-valued float32. Every distance casts the
+gathered rows to float32 and accumulates in float32, exact for 8-bit
+codes up to 256 dims, so the traversal is the same in code space;
+`db.sqnorms` stays float32 (code norms, +inf pad markers). The caller
+rescales distances by scale**2.
+
+Product-quantized DBs (dtype "pq"): `db.vectors` holds [N_pad, M] uint8
+codes and the caller passes `lut`, the per-query [M, 256] ADC tables.
+Every distance is `pq_lut_distances` (a table gather, then a sum over
+subspaces). Queries are not padded, and layer 0 runs hop-stepped as
+plain torch ops (`_search_layer0_pq`), as the reference's does.
 
 Ids are int32 everywhere, -1 padded; distances are +inf padded.
 """
@@ -33,6 +47,7 @@ import torch
 from repro_torch.core.hnsw_graph import DeviceDB
 from repro_torch.kernels.ops import fused_layer0
 from repro_torch.kernels.traversal import (
+    layer0_hop,
     merge_sorted,
     metric_distance,
     visited_test_and_set,
@@ -44,6 +59,7 @@ __all__ = [
     "bitmap_words",
     "merge_sorted",
     "metric_distance",
+    "pq_lut_distances",
     "visited_test_and_set",
     "prepare_queries",
     "search_lanes",
@@ -51,6 +67,8 @@ __all__ = [
 ]
 
 _INF = float("inf")
+# row dtypes of a table searched by mul + sum (PQ code tables take a LUT)
+_ROW_DTYPES = (torch.float32, torch.uint8, torch.int8)
 
 
 def bitmap_words(n: int) -> int:
@@ -87,16 +105,39 @@ class SearchStats(NamedTuple):
     dist_calcs: torch.Tensor  # distance evaluations == "vector reads" (Fig. 9)
 
 
-def _lane_distances(db: DeviceDB, part, q, qsq, ids, valid, metric: str):
-    """Distances from each lane's query to vectors[part, ids] ([L, M]);
-    invalid slots -> +inf. mul + sum, as the reference's `_batch_distances`
-    (a matvec's summation order depends on its context)."""
-    safe = torch.where(valid, ids, torch.zeros_like(ids))
-    idx = safe.long()
-    vecs = db.vectors[part[:, None], idx].float()          # [L, M, D]
-    d = metric_distance(metric, (vecs * q[:, None, :]).sum(-1),
-                        db.sqnorms[part[:, None], idx], qsq[:, None])
-    return torch.where(valid, d, _INF), safe
+def pq_lut_distances(lut, codes):
+    """ADC distances of PQ code rows: lut [..., M, 256] x codes
+    [..., N, M] -> [..., N].
+
+    A gather of lut[..., m, codes[..., n, m]], then `.sum(-1)` over the
+    subspaces: the reference's one accumulation for PQ distances
+    (`take_along_axis` then `jnp.sum(..., -1)`)."""
+    m = lut.shape[-2]
+    flat = lut.reshape(*lut.shape[:-2], 1, m * 256)
+    idx = codes.long() + torch.arange(m, device=codes.device) * 256
+    vals = flat.expand(*idx.shape[:-1], m * 256).gather(-1, idx)
+    return vals.sum(-1)
+
+
+def _lane_distance_fn(db: DeviceDB, part, q=None, qsq=None,
+                      metric: str = "l2", lut=None):
+    """distances(idx [L, M] int64) -> [L, M]: lane l's distances to rows
+    idx[l] of its partition part[l].
+
+    With `lut` ([L, M_pq, 256], dtype="pq") a LUT gather + sum; otherwise
+    mul + sum over rows cast to float32 (`q`, `qsq` [L, ...]), as the
+    reference's `_batch_distances` (a matvec's summation order depends on
+    its context)."""
+    rows = part[:, None]
+    if lut is not None:
+        return lambda idx: pq_lut_distances(lut, db.vectors[rows, idx])
+    qd, qs = q[:, None, :], qsq[:, None]
+
+    def distances(idx):
+        dot = (db.vectors[rows, idx].float() * qd).sum(-1)
+        return metric_distance(metric, dot, db.sqnorms[rows, idx], qs)
+
+    return distances
 
 
 # ---------------------------------------------------------------------------
@@ -104,15 +145,13 @@ def _lane_distances(db: DeviceDB, part, q, qsq, ids, valid, metric: str):
 # ---------------------------------------------------------------------------
 
 
-def _greedy_upper(db: DeviceDB, part, q, qsq, p: SearchParams):
+def _greedy_upper(db: DeviceDB, part, distances, p: SearchParams):
     """Descend every lane from its partition's top layer to layer 1.
 
     Returns the layer-0 entry (id, distance) and the distance evaluations
     so far, which start at 1 for the entry point itself."""
     ep = db.entry[part]
-    ep_d = metric_distance(
-        p.metric, (db.vectors[part, ep.long()].float() * q).sum(-1),
-        db.sqnorms[part, ep.long()], qsq)
+    ep_d = distances(ep.long()[:, None])[:, 0]
     cur, cur_d = ep, ep_d
     calcs = torch.ones_like(ep)
     max_level = db.max_level[part]
@@ -125,7 +164,8 @@ def _greedy_upper(db: DeviceDB, part, q, qsq, p: SearchParams):
             row = db.up_ptr[part, cur.long()]
             nbrs = db.up_nbrs[part, layer - 1, row.clamp_min(0).long()]
             valid = (nbrs >= 0) & (row >= 0)[:, None]
-            d, safe = _lane_distances(db, part, q, qsq, nbrs, valid, p.metric)
+            safe = torch.where(valid, nbrs, torch.zeros_like(nbrs))
+            d = torch.where(valid, distances(safe.long()), _INF)
             j = d.argmin(dim=1, keepdim=True)      # first index on ties
             best_d = d.gather(1, j)[:, 0]
             best = safe.gather(1, j)[:, 0]
@@ -142,12 +182,14 @@ def _greedy_upper(db: DeviceDB, part, q, qsq, p: SearchParams):
 # ---------------------------------------------------------------------------
 
 
-def _search_layer0(db: DeviceDB, queries, qsq, ep, ep_d, p: SearchParams):
+def _initial_beam(n_pad: int, ep, ep_d, p: SearchParams):
+    """The layer-0 state of L lanes entering at (ep, ep_d): candidate and
+    final lists, the visited bitmap with ep set, hops and dist_calcs."""
     L = ep.shape[0]
     dev = ep.device
     C, EF = p.cand_size, p.ef
-    visited = torch.zeros((L, bitmap_words(db.vectors.shape[1])),
-                          dtype=torch.int32, device=dev)
+    visited = torch.zeros((L, bitmap_words(n_pad)), dtype=torch.int32,
+                          device=dev)
     _, visited = visited_test_and_set(
         visited, ep[:, None], torch.ones((L, 1), dtype=torch.bool, device=dev))
     cand_d = torch.full((L, C), _INF, device=dev)
@@ -158,13 +200,35 @@ def _search_layer0(db: DeviceDB, queries, qsq, ep, ep_d, p: SearchParams):
     fin_d[:, 0], fin_i[:, 0] = ep_d, ep
     hops = torch.zeros(L, dtype=torch.int32, device=dev)
     calcs = torch.zeros(L, dtype=torch.int32, device=dev)
+    return [cand_d, cand_i, fin_d, fin_i, visited, hops, calcs]
+
+
+def _search_layer0(db: DeviceDB, queries, qsq, ep, ep_d, p: SearchParams):
+    state = _initial_beam(db.vectors.shape[1], ep, ep_d, p)
+    cand_d, _, fin_d, fin_i, _, hops, calcs = state
     # Algorithm 1 lines 2 & 5: a lane is live while its nearest candidate
     # can still improve the final list and its hop budget lasts
     while bool(((cand_d[:, 0] < fin_d[:, -1]) & (hops < p.max_hops)).any()):
         fused_layer0(db.vectors, db.sqnorms, db.l0_nbrs, queries, qsq,
-                     cand_d, cand_i, fin_d, fin_i, visited, hops, calcs,
-                     fused_hops=max(p.fused_hops, 1), max_hops=p.max_hops,
-                     metric=p.metric)
+                     *state, fused_hops=max(p.fused_hops, 1),
+                     max_hops=p.max_hops, metric=p.metric)
+    return fin_d, fin_i, hops, calcs
+
+
+def _search_layer0_pq(db: DeviceDB, part, distances, ep, ep_d,
+                      p: SearchParams):
+    """Layer 0 of a dtype="pq" DB: one hop for every live lane per loop
+    iteration, as plain torch ops on the DB's device.
+
+    This is the port of the reference's PQ layer 0, which is plain JAX
+    (its fused traversal kernel has no PQ variant), not a fallback from
+    a kernel. `fused_hops` does not apply, so results are trivially
+    identical at every value."""
+    state = _initial_beam(db.vectors.shape[1], ep, ep_d, p)
+    while layer0_hop(db.l0_nbrs, part, distances, *state,
+                     max_hops=p.max_hops):
+        pass
+    _, _, fin_d, fin_i, _, hops, calcs = state
     return fin_d, fin_i, hops, calcs
 
 
@@ -184,26 +248,37 @@ def prepare_queries(queries, d_pad: int, device) -> torch.Tensor:
 def search_lanes(db: DeviceDB, queries, p: SearchParams, lut=None):
     """Search every partition of a stacked DB for every query.
 
-    db: partition-stacked tensors ([P, N_pad, ...]); queries [B, D].
+    db: partition-stacked tensors ([P, N_pad, ...]); queries [B, D];
+    lut: the [B, M, 256] ADC tables of a dtype="pq" DB, else None.
     Returns global ids [P, B, k] int32, dists [P, B, k] and per-partition
     SearchStats ([P, B])."""
-    if lut is not None:
-        raise NotImplementedError(
-            "product-quantized (dtype='pq') search is not yet ported; "
-            "see ROADMAP.md")
-    if db.vectors.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{db.vectors.dtype} code tables (quantized search) are not yet "
-            f"ported; see ROADMAP.md")
     P, _, d_pad = db.vectors.shape
+    dev = db.vectors.device
     p = p.resolve(db.l0_nbrs.shape[-1])
-    queries = prepare_queries(queries, d_pad, db.vectors.device)
-    B = queries.shape[0]
-    lane = torch.arange(P * B, device=queries.device)
+    if lut is None:
+        if db.vectors.dtype not in _ROW_DTYPES:
+            raise TypeError(
+                f"{db.vectors.dtype} rows are not searchable; tables hold "
+                f"float32, uint8 or int8 rows, or PQ codes with a `lut`")
+        queries = prepare_queries(queries, d_pad, dev)
+        qsq = (queries * queries).sum(-1)
+        B = queries.shape[0]
+    else:
+        lut = torch.as_tensor(lut, dtype=torch.float32, device=dev)
+        B = lut.shape[0]
+    lane = torch.arange(P * B, device=dev)
     part, qrow = lane // B, lane % B
-    qsq = (queries * queries).sum(-1)
-    ep, ep_d, up_calcs = _greedy_upper(db, part, queries[qrow], qsq[qrow], p)
-    fin_d, fin_i, hops, calcs = _search_layer0(db, queries, qsq, ep, ep_d, p)
+    if lut is None:
+        dist = _lane_distance_fn(db, part, queries[qrow], qsq[qrow],
+                                 p.metric)
+        ep, ep_d, up_calcs = _greedy_upper(db, part, dist, p)
+        fin_d, fin_i, hops, calcs = _search_layer0(db, queries, qsq, ep,
+                                                   ep_d, p)
+    else:
+        dist = _lane_distance_fn(db, part, lut=lut[qrow])
+        ep, ep_d, up_calcs = _greedy_upper(db, part, dist, p)
+        fin_d, fin_i, hops, calcs = _search_layer0_pq(db, part, dist, ep,
+                                                      ep_d, p)
     k_d, k_i = fin_d[:, : p.k], fin_i[:, : p.k]
     k_g = torch.where(k_i >= 0,
                       db.gids[part[:, None], k_i.clamp_min(0).long()], -1)

@@ -33,6 +33,13 @@
 //      __fmul_rn/__fsub_rn/__fadd_rn, so nvcc cannot contract it into an
 //      FMA: the only difference from the plain version is the summation
 //      order of the dot product (exact on integer-valued data).
+//      Rows are float32 or 8-bit codes (uint8 / int8, IndexSpec.dtype):
+//      a code row is D_pad bytes, so at D_pad=128 each of the 8 threads
+//      reads its 16 codes with one 16-byte load, widens them to float32
+//      (int8 sign-extended) and multiply-adds them against the float32
+//      query. 8-bit codes at D <= 256 keep every partial sum an integer
+//      below 2^24, so the dot product is exact in any order and kernel,
+//      plain version and reference agree bitwise.
 //   4. Line-11 guard against fin_d[EF-1] from before the merge; calcs
 //      counts every active neighbor, including those the guard drops.
 //   5. Stable sort of the batch by rank counting,
@@ -42,13 +49,16 @@
 //      truncate to C / EF.
 //
 // What bounds it on this card: per hop and lane a dependent gather of
-// about M0*(4*D_pad+4) + 4*M0_pad bytes (16.6 KB at D_pad=128, M0=32),
+// about M0*(4*D_pad+4) + 4*M0_pad bytes (16.6 KB at D_pad=128, M0=32;
+// M0*(D_pad+4) + 4*M0_pad bytes, 4.3 KB, for 8-bit rows),
 // scattered rows with a data-dependent address chain between hops, and a
 // few hundred flops. It is bound by memory latency and gather bandwidth,
 // not arithmetic. The design's answer is many lanes in flight: one small
 // CTA per lane (about 11 KB of shared memory, 16 CTAs an SM) and 16 rows
 // loaded at once per CTA. Pipelining the gathers with cp.async / TMA is
 // later work.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -64,8 +74,7 @@ constexpr int kMaxC = 256;
 enum Metric : int { kL2 = 0, kIP = 1, kCosine = 2 };
 
 // Partial dot product of one row with the query over this thread's
-// 16-byte slices (sub-th of each 32-float stride). Only float32 rows are
-// instantiated; 8-bit code rows come with the quantized slice.
+// 16-byte slices of the row (the sub-th of each 8 x 16-byte stride).
 template <typename T>
 struct RowDot;
 
@@ -84,6 +93,49 @@ struct RowDot<float> {
     return acc;
   }
 };
+
+// Byte j of a little-endian 32-bit word as float32: uint8 zero-extended,
+// int8 sign-extended (arithmetic shift of the byte moved to the top).
+template <typename T>
+__device__ __forceinline__ float code_at(unsigned int w, int j);
+
+template <>
+__device__ __forceinline__ float code_at<uint8_t>(unsigned int w, int j) {
+  return static_cast<float>((w >> (8 * j)) & 0xffu);
+}
+
+template <>
+__device__ __forceinline__ float code_at<int8_t>(unsigned int w, int j) {
+  return static_cast<float>(static_cast<int>(w << (24 - 8 * j)) >> 24);
+}
+
+// 8-bit code rows: one 16-byte load carries 16 codes, multiplied against
+// 16 float32 query values (four float4 loads).
+template <typename T>
+struct RowDot8 {
+  static __device__ __forceinline__ float partial(const T* __restrict__ row,
+                                                  const float* __restrict__ q,
+                                                  int D, int sub) {
+    float acc = 0.f;
+    for (int k = sub * 16; k < D; k += kGroup * 16) {
+      const uint4 c = __ldg(reinterpret_cast<const uint4*>(row + k));
+      const unsigned int w[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 y = __ldg(reinterpret_cast<const float4*>(q + k + 4 * i));
+        acc += code_at<T>(w[i], 0) * y.x + code_at<T>(w[i], 1) * y.y +
+               code_at<T>(w[i], 2) * y.z + code_at<T>(w[i], 3) * y.w;
+      }
+    }
+    return acc;
+  }
+};
+
+template <>
+struct RowDot<uint8_t> : RowDot8<uint8_t> {};
+
+template <>
+struct RowDot<int8_t> : RowDot8<int8_t> {};
 
 __device__ __forceinline__ float metric_dist(int metric, float dot, float xsq,
                                              float qsq) {
@@ -258,22 +310,19 @@ fused_traversal_kernel(const T* __restrict__ vectors,       // [P, N, D]
   }
 }
 
-}  // namespace
-
-// C interface, bound with ctypes. Launches on `stream` and returns
-// cudaGetLastError(); shapes were checked by the Python wrapper.
-extern "C" int repro_fused_traversal_f32(
-    const void* vectors, const void* sqnorms, const void* l0_nbrs,
-    const void* queries, const void* qsq, void* cand_d, void* cand_i,
-    void* fin_d, void* fin_i, void* visited, void* hops, void* calcs,
-    int device, int L, int B, int N, int D, int M0, int C, int EF, int W,
-    int H, int max_hops, int metric, void* stream) {
+template <typename T>
+int launch_traversal(const void* vectors, const void* sqnorms,
+                     const void* l0_nbrs, const void* queries, const void* qsq,
+                     void* cand_d, void* cand_i, void* fin_d, void* fin_i,
+                     void* visited, void* hops, void* calcs, int device, int L,
+                     int B, int N, int D, int M0, int C, int EF, int W, int H,
+                     int max_hops, int metric, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (L == 0) return 0;
-  fused_traversal_kernel<float><<<L, kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vectors), static_cast<const float*>(sqnorms),
+  fused_traversal_kernel<T><<<L, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(vectors), static_cast<const float*>(sqnorms),
       static_cast<const int*>(l0_nbrs), static_cast<const float*>(queries),
       static_cast<const float*>(qsq), static_cast<float*>(cand_d),
       static_cast<int*>(cand_i), static_cast<float*>(fin_d),
@@ -282,6 +331,28 @@ extern "C" int repro_fused_traversal_f32(
       W, H, max_hops, metric);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// C interface, bound with ctypes: one entry point per row type. Each
+// launches on `stream` and returns cudaGetLastError(); shapes were checked
+// by the Python wrapper.
+#define REPRO_TRAVERSAL_ENTRY(NAME, T)                                        \
+  extern "C" int NAME(                                                        \
+      const void* vectors, const void* sqnorms, const void* l0_nbrs,          \
+      const void* queries, const void* qsq, void* cand_d, void* cand_i,       \
+      void* fin_d, void* fin_i, void* visited, void* hops, void* calcs,       \
+      int device, int L, int B, int N, int D, int M0, int C, int EF, int W,   \
+      int H, int max_hops, int metric, void* stream) {                        \
+    return launch_traversal<T>(vectors, sqnorms, l0_nbrs, queries, qsq,       \
+                               cand_d, cand_i, fin_d, fin_i, visited, hops,   \
+                               calcs, device, L, B, N, D, M0, C, EF, W, H,    \
+                               max_hops, metric, stream);                     \
+  }
+
+REPRO_TRAVERSAL_ENTRY(repro_fused_traversal_f32, float)
+REPRO_TRAVERSAL_ENTRY(repro_fused_traversal_u8, uint8_t)
+REPRO_TRAVERSAL_ENTRY(repro_fused_traversal_i8, int8_t)
 
 extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

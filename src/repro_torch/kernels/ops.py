@@ -7,12 +7,25 @@ from one to the other.
 
 from __future__ import annotations
 
+from repro_torch.kernels.qdist import (
+    pq_adc_cuda,
+    pq_adc_ref,
+    pq_topk_cuda,
+    pq_topk_ref,
+)
 from repro_torch.kernels.traversal import (
     fused_traversal_cuda,
     fused_traversal_ref,
 )
 
-__all__ = ["fused_layer0"]
+__all__ = ["fused_layer0", "pq_adc", "pq_topk"]
+
+
+def _pick(t, cuda_fn, plain_fn, what: str):
+    fn = {"cuda": cuda_fn, "cpu": plain_fn}.get(t.device.type)
+    if fn is None:
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return fn
 
 
 def fused_layer0(vectors, sqnorms, l0_nbrs, queries, qsq,
@@ -20,11 +33,24 @@ def fused_layer0(vectors, sqnorms, l0_nbrs, queries, qsq,
                  fused_hops: int, max_hops: int, metric: str = "l2"):
     """One H-hop superstep of the layer-0 traversal over every lane, in
     place (kernels/traversal.py — the paper's Fig. 6 engine). The tables
-    are partition-stacked [P, N_pad, ...]; the state has L = P*B rows."""
-    kind = vectors.device.type
-    fn = {"cuda": fused_traversal_cuda, "cpu": fused_traversal_ref}.get(kind)
-    if fn is None:
-        raise ValueError(f"fused_layer0: unsupported device {vectors.device}")
+    are partition-stacked [P, N_pad, ...] float32 or 8-bit code rows; the
+    state has L = P*B rows."""
+    fn = _pick(vectors, fused_traversal_cuda, fused_traversal_ref,
+               "fused_layer0")
     return fn(vectors, sqnorms, l0_nbrs, queries, qsq,
               cand_d, cand_i, fin_d, fin_i, visited, hops, calcs,
               fused_hops=fused_hops, max_hops=max_hops, metric=metric)
+
+
+def pq_adc(luts, codes, xpad=None):
+    """PQ asymmetric distances [Bq, Bx] float32 (kernels/qdist.py): luts
+    [Bq, M, 256] from `build_pq_lut`, codes [Bx, M] uint8, optional xpad
+    [Bx] with +inf on padding rows."""
+    return _pick(luts, pq_adc_cuda, pq_adc_ref, "pq_adc")(luts, codes, xpad)
+
+
+def pq_topk(luts, codes, xpad=None, *, k: int = 10):
+    """Fused PQ k-NN over code rows: (dists [Bq, k] ascending, ids [Bq, k]
+    int32); unfilled slots are (+inf, -1) (kernels/qdist.py)."""
+    fn = _pick(luts, pq_topk_cuda, pq_topk_ref, "pq_topk")
+    return fn(luts, codes, xpad, k=k)

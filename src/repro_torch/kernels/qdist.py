@@ -1,0 +1,183 @@
+"""Product-quantization ADC (dtype="pq"): the plain PyTorch versions and
+the wrappers of their CUDA kernels.
+
+    pq_adc : luts [Bq, M, 256] f32 x codes [Bx, M] uint8 (+ xpad [Bx] f32)
+             -> d [Bq, Bx] f32,  d[q, x] = xpad[x] + sum_m lut[q, m, code[x, m]]
+    pq_topk: the k smallest of each row of that matrix, never materialized
+             -> (dists [Bq, k] f32 ascending, ids [Bq, k] int32)
+
+The sum starts at `xpad` (0 when absent; +inf marks a padding row) and
+adds one table entry per subspace, in subspace order, each add rounded on
+its own — the reference's order (`_pq_block_dists`), so kernel, plain
+version and reference agree bitwise on any input.
+
+`pq_topk` orders by distance, then by row id: among equal distances the
+lower row wins, as the reference's `lax.top_k` does. A slot that no
+finite distance fills (fewer than k rows, or padding rows) holds
+(+inf, -1). There the reference returns ids that depend on its block
+size; the finite slots agree.
+
+`pq_adc_ref` / `pq_topk_ref` are the plain versions: the CPU path and the
+yardstick the kernels are compared with on the card. `pq_adc_cuda` /
+`pq_topk_cuda` launch `csrc/qdist.cu` (built by `_build.py`) and count
+their launches in `ADC_LAUNCHES` / `TOPK_LAUNCHES`. `ops.pq_adc` /
+`ops.pq_topk` pick one by the tensors' device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["ADC_LAUNCHES", "TOPK_LAUNCHES", "MAX_K", "pq_adc_ref",
+           "pq_topk_ref", "pq_adc_cuda", "pq_topk_cuda"]
+
+# launches of each CUDA kernel since import (or since a caller reset them)
+ADC_LAUNCHES = 0
+TOPK_LAUNCHES = 0
+
+# shape limits of csrc/qdist.cu: k per query, splits of the rows, and
+# subspaces (M * 1 KB of table per query must fit in shared memory)
+MAX_K, MAX_SPLITS, MAX_M = 64, 32, 128
+_THREADS = 256
+# CTAs that fill the card: a few per SM of the H100's 132
+_ADC_CTAS, _TOPK_CTAS = 8 * 132, 4 * 132
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def pq_adc_ref(luts, codes, xpad=None):
+    """ADC matrix [Bq, Bx]: one gather and one add per subspace, in
+    subspace order."""
+    luts = luts.float()
+    idx = codes.long()
+    acc = luts.new_zeros((luts.shape[0], codes.shape[0]))
+    if xpad is not None:
+        acc = acc + xpad.float()[None, :]
+    for m in range(luts.shape[1]):
+        acc = acc + luts[:, m, :].index_select(1, idx[:, m])
+    return acc
+
+
+def pq_topk_ref(luts, codes, xpad=None, *, k: int = 10):
+    """(dists [Bq, k] ascending, ids [Bq, k] int32) of the ADC matrix;
+    ties go to the lower row, unfilled slots are (+inf, -1)."""
+    d = pq_adc_ref(luts, codes, xpad)
+    if d.shape[1] < k:
+        d = torch.nn.functional.pad(d, (0, k - d.shape[1]),
+                                    value=float("inf"))
+    vals, order = torch.sort(d, dim=1, stable=True)
+    vals, ids = vals[:, :k], order[:, :k].to(torch.int32)
+    fin = vals < float("inf")
+    return (torch.where(fin, vals, float("inf")),
+            torch.where(fin, ids, torch.full_like(ids, -1)))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' wrappers
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "repro_pq_adc": (ctypes.c_int, [_P] * 4 + [_I] * 7 + [_P]),
+    "repro_pq_topk": (ctypes.c_int, [_P] * 7 + [_I] * 8 + [_P]),
+    "repro_qdist_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+def _launch_shape(luts, codes, xpad):
+    """Check the operands; returns (Bq, Bx, M, kq, vec, device).
+
+    kq is the number of queries a CTA holds (its tables take kq * M KB of
+    shared memory); vec is the code load width in bytes."""
+    dev = luts.device
+    if dev.type != "cuda":
+        raise ValueError(f"the PQ kernels need CUDA tensors, got {dev}")
+    if luts.dim() != 3 or luts.shape[2] != 256:
+        raise ValueError(f"luts must be [Bq, M, 256], got {tuple(luts.shape)}")
+    bq, m, _ = luts.shape
+    if codes.dim() != 2 or codes.shape[1] != m:
+        raise ValueError(f"codes must be [Bx, {m}], got {tuple(codes.shape)}")
+    bx = codes.shape[0]
+    if not 0 < m <= MAX_M:
+        raise ValueError(f"M={m} subspaces; the kernels take 1..{MAX_M}")
+    kq = 4 if m <= 16 else 2 if m <= 32 else 1
+    if bx >= 2 ** 31 or -(-bq // kq) > 65535:
+        raise ValueError(f"Bq={bq}, Bx={bx} exceed the kernels' grid")
+    for name, t, dtype in (("luts", luts, torch.float32),
+                           ("codes", codes, torch.uint8)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if xpad is not None:
+        if (xpad.device != dev or xpad.dtype != torch.float32
+                or tuple(xpad.shape) != (bx,) or not xpad.is_contiguous()):
+            raise ValueError(f"xpad must be a contiguous float32 [{bx}] "
+                             f"tensor on {dev}")
+    ptr = codes.data_ptr()
+    vec = 16 if m % 16 == 0 and ptr % 16 == 0 else \
+        4 if m % 4 == 0 and ptr % 4 == 0 else 1
+    return bq, bx, m, kq, vec, dev
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.repro_qdist_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def pq_adc_cuda(luts, codes, xpad=None):
+    """Launch `csrc/qdist.cu`'s ADC matrix kernel on the current stream;
+    returns d [Bq, Bx] float32. Raises on any other device, dtype, shape
+    or layout."""
+    global ADC_LAUNCHES
+    bq, bx, m, kq, vec, dev = _launch_shape(luts, codes, xpad)
+    out = torch.empty((bq, bx), dtype=torch.float32, device=dev)
+    groups = -(-bq // kq)
+    grid_x = max(1, min(-(-bx // _THREADS), -(-_ADC_CTAS // max(groups, 1))))
+    lib = _build.load("qdist", _SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.repro_pq_adc(luts.data_ptr(), codes.data_ptr(),
+                           None if xpad is None else xpad.data_ptr(),
+                           out.data_ptr(), dev.index or 0, bq, bx, m, vec, kq,
+                           grid_x, stream)
+    _raise_on(lib, err, "pq_adc")
+    ADC_LAUNCHES += 1
+    return out
+
+
+def pq_topk_cuda(luts, codes, xpad=None, *, k: int = 10):
+    """Launch `csrc/qdist.cu`'s fused ADC top-k on the current stream;
+    returns (dists [Bq, k] float32, ids [Bq, k] int32). k <= 64; raises on
+    any other device, dtype, shape or layout."""
+    global TOPK_LAUNCHES
+    bq, bx, m, kq, vec, dev = _launch_shape(luts, codes, xpad)
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"k={k}; the kernel takes 1..{MAX_K}")
+    groups = -(-bq // kq)
+    splits = max(1, min(MAX_SPLITS, -(-_TOPK_CTAS // max(groups, 1)),
+                        -(-bx // _THREADS)))
+    part_d = torch.empty((bq, splits, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((bq, splits, k), dtype=torch.int32, device=dev)
+    out_d = torch.empty((bq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
+    lib = _build.load("qdist", _SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.repro_pq_topk(luts.data_ptr(), codes.data_ptr(),
+                            None if xpad is None else xpad.data_ptr(),
+                            part_d.data_ptr(), part_i.data_ptr(),
+                            out_d.data_ptr(), out_i.data_ptr(),
+                            dev.index or 0, bq, bx, m, vec, kq, k, splits,
+                            stream)
+    _raise_on(lib, err, "pq_topk")
+    TOPK_LAUNCHES += 1
+    return out_d, out_i

@@ -14,6 +14,9 @@ Lanes: the stacked partition axis is folded into the lane axis. The state
 tensors have L = P*B rows; lane l searches partition l // B for query
 l % B, so the tables are the partition-stacked [P, N_pad, ...] tensors and
 `queries` / `qsq` are the [B, ...] batch shared by every partition.
+`vectors` holds float32 rows or 8-bit code rows (uint8 / int8, with
+code-valued float32 queries); code rows are cast to float32, and for
+8-bit codes at D <= 256 every dot product is an exact integer.
 
 Both versions update the state tensors in place (cand_d, cand_i, fin_d,
 fin_i, visited, hops, calcs) and also return them.
@@ -40,8 +43,8 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["LAUNCHES", "METRICS", "fused_traversal_ref",
-           "fused_traversal_cuda", "merge_sorted", "metric_distance",
-           "visited_test_and_set"]
+           "fused_traversal_cuda", "layer0_hop", "merge_sorted",
+           "metric_distance", "visited_test_and_set"]
 
 # launches of the CUDA kernel since import (or since a caller reset it)
 LAUNCHES = 0
@@ -113,54 +116,72 @@ def visited_test_and_set(bitmap, ids, valid):
 # ---------------------------------------------------------------------------
 
 
+def layer0_hop(l0_nbrs, part, distances, cand_d, cand_i, fin_d, fin_i,
+               visited, hops, calcs, *, max_hops: int) -> bool:
+    """One layer-0 hop for every live lane, in place.
+
+    `part` [L] is each lane's partition; `distances(idx)` maps neighbor
+    ids [L, M0] (int64, 0 in invalid slots) to the lanes' distances
+    [L, M0]. Returns False, having changed nothing, when no lane is live.
+    The superstep below and the hop-stepped PQ layer 0 of `core/search.py`
+    share this body."""
+    C, EF = cand_d.shape[1], fin_d.shape[1]
+    live = (cand_d[:, 0] < fin_d[:, -1]) & (hops < max_hops)
+    if not bool(live.any()):
+        return False
+    c = cand_i[:, 0].clamp_min(0).long()
+    pcand_d = torch.cat([cand_d[:, 1:], torch.full_like(cand_d[:, :1], _INF)],
+                        dim=1)                                 # pop (line 3)
+    pcand_i = torch.cat([cand_i[:, 1:], torch.full_like(cand_i[:, :1], -1)],
+                        dim=1)
+
+    nbrs = l0_nbrs[part, c]                                    # [L, M0]
+    valid = nbrs >= 0
+    safe = torch.where(valid, nbrs, torch.zeros_like(nbrs))
+    was, vis2 = visited_test_and_set(visited, safe, valid)
+    act = valid & ~was
+    d = torch.where(act, distances(safe.long()), _INF)
+    ncalcs = calcs + act.sum(1, dtype=torch.int32)
+    # line 11 guard: only candidates that can enter the final list
+    d = torch.where(d < fin_d[:, -1:], d, _INF)
+    ids = torch.where(torch.isfinite(d), safe, -1)
+    bd, order = torch.sort(d, dim=1, stable=True)
+    bi = ids.gather(1, order)
+
+    fd, fi = merge_sorted(fin_d, fin_i, bd, bi)
+    cd, ci = merge_sorted(pcand_d, pcand_i, bd, bi)
+    lv = live[:, None]
+    visited.copy_(torch.where(lv, vis2, visited))
+    cand_d.copy_(torch.where(lv, cd[:, :C], cand_d))
+    cand_i.copy_(torch.where(lv, ci[:, :C], cand_i))
+    fin_d.copy_(torch.where(lv, fd[:, :EF], fin_d))
+    fin_i.copy_(torch.where(lv, fi[:, :EF], fin_i))
+    calcs.copy_(torch.where(live, ncalcs, calcs))
+    hops.add_(live.to(hops.dtype))
+    return True
+
+
 def fused_traversal_ref(vectors, sqnorms, l0_nbrs, queries, qsq,
                         cand_d, cand_i, fin_d, fin_i, visited, hops, calcs,
                         *, fused_hops: int, max_hops: int, metric: str = "l2"):
     """Advance every lane by up to `fused_hops` hops with batched torch ops
-    (in place; see the module docstring for shapes)."""
-    L, C = cand_d.shape
-    EF = fin_d.shape[1]
+    (in place; see the module docstring for shapes). `vectors` may hold
+    float32 rows or uint8/int8 code rows; rows are cast to float32."""
+    L = cand_d.shape[0]
     B = queries.shape[0]
     lane = torch.arange(L, device=cand_d.device)
-    part = (lane // B)[:, None]
+    part = lane // B
     q = queries[lane % B][:, None, :]            # [L, 1, D]
     qs = qsq[lane % B][:, None]
-    inf_col = cand_d.new_full((L, 1), _INF)
-    neg_col = cand_i.new_full((L, 1), -1)
+
+    def distances(idx):
+        dot = (vectors[part[:, None], idx].float() * q).sum(-1)
+        return metric_distance(metric, dot, sqnorms[part[:, None], idx], qs)
+
     for _ in range(fused_hops):
-        live = (cand_d[:, 0] < fin_d[:, -1]) & (hops < max_hops)
-        if not bool(live.any()):
+        if not layer0_hop(l0_nbrs, part, distances, cand_d, cand_i, fin_d,
+                          fin_i, visited, hops, calcs, max_hops=max_hops):
             break
-        c = cand_i[:, 0].clamp_min(0).long()
-        pcand_d = torch.cat([cand_d[:, 1:], inf_col], dim=1)   # pop (line 3)
-        pcand_i = torch.cat([cand_i[:, 1:], neg_col], dim=1)
-
-        nbrs = l0_nbrs[part[:, 0], c]                          # [L, M0]
-        valid = nbrs >= 0
-        safe = torch.where(valid, nbrs, torch.zeros_like(nbrs))
-        was, vis2 = visited_test_and_set(visited, safe, valid)
-        act = valid & ~was
-        idx = safe.long()
-        dot = (vectors[part, idx].float() * q).sum(-1)
-        d = metric_distance(metric, dot, sqnorms[part, idx], qs)
-        d = torch.where(act, d, _INF)
-        ncalcs = calcs + act.sum(1, dtype=torch.int32)
-        # line 11 guard: only candidates that can enter the final list
-        d = torch.where(d < fin_d[:, -1:], d, _INF)
-        ids = torch.where(torch.isfinite(d), safe, -1)
-        bd, order = torch.sort(d, dim=1, stable=True)
-        bi = ids.gather(1, order)
-
-        fd, fi = merge_sorted(fin_d, fin_i, bd, bi)
-        cd, ci = merge_sorted(pcand_d, pcand_i, bd, bi)
-        lv = live[:, None]
-        visited.copy_(torch.where(lv, vis2, visited))
-        cand_d.copy_(torch.where(lv, cd[:, :C], cand_d))
-        cand_i.copy_(torch.where(lv, ci[:, :C], cand_i))
-        fin_d.copy_(torch.where(lv, fd[:, :EF], fin_d))
-        fin_i.copy_(torch.where(lv, fi[:, :EF], fin_i))
-        calcs.copy_(torch.where(live, ncalcs, calcs))
-        hops.add_(live.to(hops.dtype))
     return cand_d, cand_i, fin_d, fin_i, visited, hops, calcs
 
 
@@ -169,8 +190,13 @@ def fused_traversal_ref(vectors, sqnorms, l0_nbrs, queries, qsq,
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# row dtype -> the C entry point of its instantiation
+_ENTRY = {torch.float32: "repro_fused_traversal_f32",
+          torch.uint8: "repro_fused_traversal_u8",
+          torch.int8: "repro_fused_traversal_i8"}
 _SIGNATURES = {
-    "repro_fused_traversal_f32": (ctypes.c_int, [_P] * 12 + [_I] * 12 + [_P]),
+    **{fn: (ctypes.c_int, [_P] * 12 + [_I] * 12 + [_P])
+       for fn in _ENTRY.values()},
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -193,8 +219,9 @@ def fused_traversal_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
                          metric: str = "l2"):
     """Launch `csrc/traversal.cu` on the current stream (in place).
 
-    Takes float32 tables with D_pad % 128 == 0, M0_pad <= 128, C <= 256
-    and EF <= C; raises on any other device, dtype, shape or layout."""
+    Takes float32, uint8 or int8 rows with D_pad % 128 == 0, M0_pad <= 128,
+    C <= 256 and EF <= C; raises on any other device, dtype, shape or
+    layout."""
     global LAUNCHES
     dev = vectors.device
     if dev.type != "cuda":
@@ -217,8 +244,11 @@ def fused_traversal_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
         raise ValueError(f"unknown metric {metric!r}")
     if fused_hops < 1:
         raise ValueError("fused_hops must be >= 1")
+    if vectors.dtype not in _ENTRY:
+        raise TypeError(f"vectors has dtype {vectors.dtype}; the kernel "
+                        f"takes {sorted(map(str, _ENTRY))}")
     f32, i32 = torch.float32, torch.int32
-    _check("vectors", vectors, f32, (P, N, D), dev)
+    _check("vectors", vectors, vectors.dtype, (P, N, D), dev)
     _check("sqnorms", sqnorms, f32, (P, N), dev)
     _check("l0_nbrs", l0_nbrs, i32, (P, N, M0), dev)
     _check("queries", queries, f32, (B, D), dev)
@@ -234,7 +264,7 @@ def fused_traversal_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
         raise ValueError("vectors and queries must be 16-byte aligned")
     lib = _build.load("traversal", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.repro_fused_traversal_f32(
+    err = getattr(lib, _ENTRY[vectors.dtype])(
         vectors.data_ptr(), sqnorms.data_ptr(), l0_nbrs.data_ptr(),
         queries.data_ptr(), qsq.data_ptr(), cand_d.data_ptr(),
         cand_i.data_ptr(), fin_d.data_ptr(), fin_i.data_ptr(),

@@ -207,11 +207,16 @@ def test_float_data_overlap_and_recall():
 
 
 def test_quantized_tables_not_yet_ported(int_case):
+    """8-bit code tables are ported: on byte data (0..255) a uint8 table
+    answers bitwise like the float32 one. A row type the search does not
+    take still raises."""
     _, q, pdb = int_case
     db = thg.device_db(_unstack(pdb.db, 0), "cpu")
-    db = db._replace(vectors=db.vectors.to(torch.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batch_search(db, q, SearchParams())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batch_search(thg.device_db(_unstack(pdb.db, 0), "cpu"), q,
-                     SearchParams(), lut=np.zeros((1, 8, 256), np.float32))
+    want = batch_search(db, q, SearchParams(ef=EF, k=K))
+    got = batch_search(db._replace(vectors=db.vectors.to(torch.uint8)), q,
+                       SearchParams(ef=EF, k=K, fused_hops=4))
+    for a, b in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="not searchable"):
+        batch_search(db._replace(vectors=db.vectors.to(torch.int16)), q,
+                     SearchParams())

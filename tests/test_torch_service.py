@@ -3,7 +3,8 @@
 An index saved by the reference loads into the port (device="cpu") and
 answers bitwise the same on integer-valued data, rerank off and on; the
 port's save loads back into the reference. Also: exact-backend parity,
-no silent CPU fallback, the unported branches raise, the package imports
+no silent CPU fallback, the unported backends raise (quantized or not),
+the package imports
 no JAX and nothing of the reference, and the serve CLI runs on the CPU.
 """
 
@@ -151,7 +152,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(data, ref_saved,
 
 
 @pytest.mark.parametrize("change", [
-    {"dtype": "uint8"}, {"dtype": "pq"}, {"backend": "csd"},
+    {"dtype": "uint8", "backend": "csd"},
+    {"dtype": "pq", "backend": "distributed"}, {"backend": "csd"},
     {"backend": "distributed"}])
 def test_unported_branches_raise(data, change):
     v, _ = data
