@@ -59,6 +59,27 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                traversal and the PQ kernels are timed at these paths'
                shapes against their plain versions and bounds.
 
+  7. scan    — the exact-scan kernels (l2dist, l2topk, l2dist_q,
+               l2topk_q) through the public `kernels.ops` API, last: SIFT1M's
+               size, 1,000,000 integer-valued 128-d float32 rows (the main
+               paths' data distribution), their uint8 codes (scale 1.0: the
+               bytes themselves) and int8 codes (scale 255/127), 2,048
+               queries in batches of 256, k=10. Every batch goes through
+               ops.l2topk, ops.l2topk_q on both code tables, ops.l2dist and
+               ops.l2dist_q, the four launch counters reset just before and
+               read just after. Checks: l2topk ids and dists bitwise equal to
+               core/bruteforce.py's bruteforce_topk on every batch; uint8
+               l2topk_q equal to l2topk; int8 l2topk_q (out_scale =
+               (255/127)^2) bitwise equal to its plain version; l2dist /
+               l2dist_q at the top-k ids equal the top-k dists. Then each
+               kernel against its plain version at 256 x 1M, with and without
+               16 xsq=+inf pad rows: bitwise on the integer rows and codes
+               (l2dist on l2 and ip), within SCAN_TOL on unit-norm rows
+               (cosine) and Gaussian rows; and each timed (median of 5)
+               beside its plain version, a library yardstick (torch.addmm,
+               then torch.topk for the fused scans; timed only) and its
+               bound.
+
 Each serving path prints QPS and p50/p99 per 256-query batch. The line
 before the last is {"kernels": [...]} with each kernel's launches on its
 path, error, times and bound; the last line is {"ok": true, "device":
@@ -84,6 +105,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+INT8_OPS = 1979e12               # H100 SXM dense int8 tensor cores
 # shared-memory lookups a second: 32 banks a clock on each of 132 SMs at
 # the 1.98 GHz boost clock (Hopper white paper); a floor for the PQ kernels
 SMEM_LOOKUPS_PER_S = 32 * 132 * 1.98e9
@@ -92,6 +114,10 @@ N_MAIN, N_QUERIES, BATCH, PQ_M = 32768, 2048, 256, 16
 # least share of the exact ADC scan's top-10 the PQ graph search must find
 PQ_OVERLAP_GATE = 0.90
 HNSW_M, HNSW_EFC, P_MAIN = 16, 100, 4
+# the scan phase: SIFT1M's size; float data is held to the plain versions
+# within SCAN_TOL * (|q|^2 + |x|^2) (sums in another order; see
+# tests/test_torch_scan.py)
+N_SCAN, SCAN_K, SCAN_TOL = 1_000_000, 10, 1e-5
 
 
 def check(cond, msg: str) -> None:
@@ -120,6 +146,12 @@ def median_ms(fn, reps: int = 5) -> float:
     torch.cuda.synchronize()
     runs = sorted(events_ms(fn) for _ in range(reps))
     return runs[len(runs) // 2]
+
+
+def bound(bytes_: float, ops: float, peak: float):
+    """(bound ms, "bytes" or "operations"): the larger of the two times."""
+    tb, to = bytes_ / HBM_BYTES_PER_S, ops / peak
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
 def main_data(n: int, n_queries: int):
@@ -657,12 +689,10 @@ def pq_timing(exact, q, reps: int = 5) -> dict:
         check(same, f"{name} != plain at the exact PQ path's shapes")
         bytes_ = luts.numel() * 4 + codes.numel() + out_bytes
         adds = bq * bx * m
-        bound_ms = max(bytes_ / HBM_BYTES_PER_S, adds / FP32_FLOPS) * 1e3
+        bound_ms, bound_by = bound(bytes_, adds, FP32_FLOPS)
         out[name] = {"ms": median_ms(kern, reps),
                      "plain_ms": median_ms(plain, reps),
-                     "bound_ms": bound_ms,
-                     "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
-                                  >= adds / FP32_FLOPS else "operations"),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
                      "lookup_floor_ms": adds / SMEM_LOOKUPS_PER_S * 1e3}
         log(f"[timing] {name} at the exact PQ path's shapes ({bq} queries x "
             f"{bx} rows x M={m}): kernel {out[name]['ms']:.4f} ms, plain "
@@ -743,6 +773,265 @@ def pq_phase(path: str, data, queries, gt) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the exact-scan kernels
+# ---------------------------------------------------------------------------
+
+
+def scan_tables(dev):
+    """The scan phase's rows and queries: float32, and the uint8 / int8
+    codes of the port's VectorQuantizer (code rows, code-valued queries,
+    out_scale), each with its rows' sums of squares."""
+    from repro_torch.kernels.l2dist import sqnorms
+    from repro_torch.optim import VectorQuantizer
+
+    data, queries = main_data(N_SCAN, N_QUERIES)
+    tabs = {"float32": (torch.from_numpy(data).to(dev),
+                        torch.from_numpy(queries).to(dev), None)}
+    for dt in ("uint8", "int8"):
+        quant = VectorQuantizer.fit(data, dt)
+        if dt == "uint8":
+            check(quant.scale == 1.0 and quant.zero_point == 0,
+                  "the scan rows are not bytes with max 255")
+        tabs[dt] = (torch.from_numpy(quant.encode(data)).to(dev),
+                    torch.from_numpy(quant.encode_f32(queries)).to(dev),
+                    quant.dist_scale)
+    return {dt: (x, q, scale, sqnorms(x)) for dt, (x, q, scale) in tabs.items()}
+
+
+def scan_path(tabs) -> dict:
+    """The 8 batches through ops.l2topk, ops.l2topk_q (uint8, int8),
+    ops.l2dist and ops.l2dist_q, counters reset before and read after."""
+    from repro_torch.kernels import l2dist as ld, l2topk as lt, ops
+    from repro_torch.kernels import qdist as qd
+
+    x, q, _, xsq = tabs["float32"]
+    u8, qu8, _, u8sq = tabs["uint8"]
+    i8, qi8, s8, i8sq = tabs["int8"]
+    out = {"float32": [], "uint8": [], "int8": [], "batch_ms": []}
+    ld.LAUNCHES = lt.LAUNCHES = qd.L2DIST_Q_LAUNCHES = 0
+    qd.L2TOPK_Q_LAUNCHES = 0
+    for b in range(0, N_QUERIES, BATCH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        top = ops.l2topk(q[b:b + BATCH], x, xsq, k=SCAN_K)
+        torch.cuda.synchronize()
+        out["batch_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["float32"].append(top)
+        out["uint8"].append(ops.l2topk_q(qu8[b:b + BATCH], u8, u8sq, k=SCAN_K))
+        out["int8"].append(ops.l2topk_q(qi8[b:b + BATCH], i8, i8sq, k=SCAN_K,
+                                        out_scale=s8))
+        dv, di = top
+        for what, full in (("l2dist", ops.l2dist(q[b:b + BATCH], x)),
+                           ("l2dist_q", ops.l2dist_q(qu8[b:b + BATCH], u8))):
+            check(torch.equal(full.gather(1, di.long()), dv)
+                  and torch.equal(full.min(1).values, dv[:, 0]),
+                  f"ops.{what} disagrees with ops.l2topk, batch {b // BATCH}")
+            del full
+    out["launches"] = {"l2dist": ld.LAUNCHES, "l2topk": lt.LAUNCHES,
+                       "l2dist_q": qd.L2DIST_Q_LAUNCHES,
+                       "l2topk_q": qd.L2TOPK_Q_LAUNCHES}
+    return out
+
+
+def same(got, want) -> bool:
+    if isinstance(got, tuple):
+        return all(torch.equal(a, b) for a, b in zip(got, want))
+    return torch.equal(got, want)
+
+
+def max_err(got, want) -> float:
+    """Largest |kernel - plain| over finite entries of a matrix or of a
+    top-k's distances."""
+    a, b = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+    fin = torch.isfinite(b)
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def scan_kernel_checks(tabs, g) -> dict:
+    """Each kernel against its plain version at 256 x 1M: bitwise on the
+    integer rows and codes, with and without 16 pad rows; within SCAN_TOL
+    on unit-norm rows (cosine) and Gaussian rows. Returns each kernel's
+    largest |kernel - plain|."""
+    from repro_torch.kernels import l2dist as ld, l2topk as lt
+    from repro_torch.kernels import qdist as qd
+
+    x, q, _, xsq = tabs["float32"]
+    q = q[:BATCH]
+    pad = xsq.clone()
+    pad[N_SCAN - 16:] = float("inf")
+    err = dict.fromkeys(("l2dist", "l2topk", "l2dist_q", "l2topk_q"), 0.0)
+    cases = []
+    for xs in (None, pad):
+        cases += [("l2dist", f"l2 (xsq pads={xs is not None})",
+                   lambda xs=xs: ld.l2dist_cuda(q, x, xs),
+                   lambda xs=xs: ld.l2dist_ref(q, x, xs)),
+                  ("l2topk", f"float32 (xsq pads={xs is not None})",
+                   lambda xs=xs: lt.l2topk_cuda(q, x, xs, k=SCAN_K),
+                   lambda xs=xs: lt.l2topk_ref(q, x, xs, k=SCAN_K))]
+    cases.append(("l2dist", "ip", lambda: ld.l2dist_cuda(q, x, metric="ip"),
+                  lambda: ld.l2dist_ref(q, x, metric="ip")))
+    for dt in ("uint8", "int8"):
+        c, qc, scale, csq = tabs[dt]
+        qc = qc[:BATCH]
+        cpad = torch.where(torch.isinf(pad), pad, csq)
+        for xs in (None, cpad):
+            tag = f"{dt} (xsq pads={xs is not None})"
+            cases += [("l2dist_q", tag,
+                       lambda c=c, qc=qc, xs=xs, s=scale:
+                           qd.l2dist_q_cuda(qc, c, xs, out_scale=s),
+                       lambda c=c, qc=qc, xs=xs, s=scale:
+                           qd.l2dist_q_ref(qc, c, xs, out_scale=s)),
+                      ("l2topk_q", tag,
+                       lambda c=c, qc=qc, xs=xs, s=scale:
+                           qd.l2topk_q_cuda(qc, c, xs, k=SCAN_K, out_scale=s),
+                       lambda c=c, qc=qc, xs=xs, s=scale:
+                           qd.l2topk_q_ref(qc, c, xs, k=SCAN_K, out_scale=s))]
+    for name, tag, kern, plain in cases:
+        got, want = kern(), plain()
+        check(same(got, want), f"{name} != plain ({tag})")
+        if isinstance(got, tuple) and "pads=True" in tag:
+            check(int(got[1].max()) < N_SCAN - 16, f"{name} returned a pad row")
+        err[name] = max(err[name], max_err(got, want))
+        log(f"[scan] {name} {BATCH} x {N_SCAN} x 128, {tag}: bitwise equal "
+            f"to its plain version")
+        del got, want
+    # float data: unit-norm rows for cosine, Gaussian rows for l2
+    gx = torch.randn((N_SCAN, 128), generator=g, device=DEVICE)
+    gq = torch.randn((BATCH, 128), generator=g, device=DEVICE)
+    for what, xs, qs, metric in (
+            ("unit-norm", gx / gx.norm(dim=1, keepdim=True),
+             gq / gq.norm(dim=1, keepdim=True), "cosine"),
+            ("Gaussian", gx, gq, "l2")):
+        tol = SCAN_TOL * (ld.sqnorms(qs)[:, None] + ld.sqnorms(xs)[None, :])
+        got, want = ld.l2dist_cuda(qs, xs, metric=metric), ld.l2dist_ref(
+            qs, xs, metric=metric)
+        check(bool(((got - want).abs() <= tol).all()),
+              f"l2dist ({metric}, {what} rows) beyond the tolerance")
+        err["l2dist"] = max(err["l2dist"], max_err(got, want))
+        del got, want
+        log(f"[scan] l2dist {metric} on {what} rows: within {SCAN_TOL} x "
+            f"(|q|^2 + |x|^2) of its plain version")
+        if metric != "l2":
+            continue
+        (gv, gi), (wv, wi) = lt.l2topk_cuda(qs, xs, k=SCAN_K), \
+            lt.l2topk_ref(qs, xs, k=SCAN_K + 1)
+        row_tol = tol.max(1).values[:, None]
+        check(bool(((gv - wv[:, :SCAN_K]).abs() <= row_tol).all()),
+              f"l2topk on {what} rows beyond the tolerance")
+        # ids may differ only where the k-th and (k+1)-th are within tol
+        clear = (wv[:, SCAN_K] - wv[:, SCAN_K - 1]) > 2 * row_tol[:, 0]
+        same_ids = (torch.sort(gi, 1).values
+                    == torch.sort(wi[:, :SCAN_K], 1).values).all(1)
+        check(bool(same_ids[clear].all()),
+              f"l2topk on {what} rows: other ids away from a near-tie")
+        err["l2topk"] = max(err["l2topk"],
+                            float((gv - wv[:, :SCAN_K]).abs().max()))
+        log(f"[scan] l2topk on {what} rows: dists within the tolerance, ids "
+            f"equal on {int(same_ids.sum())}/{BATCH} queries "
+            f"({int(clear.sum())} clear of a near-tie)")
+        del tol
+    del gx, gq
+    torch.cuda.empty_cache()
+    return err
+
+
+def scan_timing(tabs, reps: int = 5) -> dict:
+    """Each kernel, its plain version and its library yardstick (one
+    torch.addmm, then torch.topk for the fused scans; codes cast to float32
+    before timing) at 256 x 1M x 128, device ms as the median of `reps`."""
+    from repro_torch.kernels import l2dist as ld, l2topk as lt
+    from repro_torch.kernels import qdist as qd
+
+    out = {}
+    for dt in ("float32", "uint8"):
+        x, q, _, xsq = tabs[dt]
+        q = q[:BATCH]
+        qsq = ld.sqnorms(q)
+        xf = x.float()
+        bq, (bx, d) = q.shape[0], x.shape
+        ops_ = 2.0 * bq * bx * d
+        peak = FP32_FLOPS if dt == "float32" else INT8_OPS
+        in_bytes = q.numel() * 4 + x.numel() * x.element_size() + bx * 4
+        dist_lib = (lambda xf=xf, q=q, qsq=qsq, xsq=xsq: torch.addmm(
+            qsq[:, None] + xsq[None, :], q, xf.T, alpha=-2))
+        if dt == "float32":
+            names = ("l2dist", "l2topk")
+            kern = (lambda: ld.l2dist_cuda(q, x, xsq),
+                    lambda: lt.l2topk_cuda(q, x, xsq, k=SCAN_K))
+            plain = (lambda: ld.l2dist_ref(q, x, xsq),
+                     lambda: lt.l2topk_ref(q, x, xsq, k=SCAN_K))
+        else:
+            names = ("l2dist_q", "l2topk_q")
+            kern = (lambda: qd.l2dist_q_cuda(q, x, xsq),
+                    lambda: qd.l2topk_q_cuda(q, x, xsq, k=SCAN_K))
+            plain = (lambda: qd.l2dist_q_ref(q, x, xsq),
+                     lambda: qd.l2topk_q_ref(q, x, xsq, k=SCAN_K))
+        libs = (dist_lib, lambda lib=dist_lib: torch.topk(
+            lib(), SCAN_K, dim=1, largest=False))
+        outs = (bq * bx * 4, bq * SCAN_K * 8)
+        for name, kf, pf, lf, ob in zip(names, kern, plain, libs, outs):
+            b_ms, b_by = bound(in_bytes + ob, ops_, peak)
+            t = {"ms": median_ms(kf, reps), "plain_ms": median_ms(pf, reps),
+                 "library_ms": median_ms(lf, reps), "bound_ms": b_ms,
+                 "bound_by": b_by}
+            out[name] = t
+            log(f"[scan] timing {name} ({dt} rows, {bq} x {bx} x {d}"
+                f"{f', k={SCAN_K}' if 'topk' in name else ''}): kernel "
+                f"{t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+                f"bound {b_ms:.5f} ms ({b_by}: {(in_bytes + ob) / 1e6:.1f} MB, "
+                f"{ops_ / 1e9:.1f} G{'FLOP' if dt == 'float32' else 'OP'})")
+            torch.cuda.empty_cache()
+        del xf
+    return out
+
+
+def scan_phase(seed: int) -> dict:
+    from repro_torch.core.bruteforce import bruteforce_topk
+    from repro_torch.kernels import qdist as qd
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    tabs = scan_tables(dev)
+    torch.cuda.synchronize()
+    log(f"[scan] tables: {N_SCAN} x 128 float32 ({N_SCAN * 128 * 4 / 2**20:.0f}"
+        f" MiB), uint8 and int8 codes (int8 out_scale "
+        f"{tabs['int8'][2]!r}), {N_QUERIES} queries, "
+        f"{time.perf_counter() - t0:.1f}s")
+    path = scan_path(tabs)
+    launches = path["launches"]
+    log(f"[scan] ops over {N_QUERIES // BATCH} batches of {BATCH}: launches "
+        f"{launches}; ops.l2topk host clock per batch, median "
+        f"{np.median(path['batch_ms']):.3f} ms, max "
+        f"{max(path['batch_ms']):.3f} ms")
+    for name, n in launches.items():
+        check(n > 0, f"the scan path launched no {name} kernel")
+    x, q, _, xsq = tabs["float32"]
+    i8, qi8, s8, i8sq = tabs["int8"]
+    for i, b in enumerate(range(0, N_QUERIES, BATCH)):
+        fv, fi = path["float32"][i]
+        ids, dists = bruteforce_topk(x, xsq, q[b:b + BATCH], k=SCAN_K,
+                                     chunk=40_000)
+        check(torch.equal(fi, ids) and torch.equal(fv, dists),
+              f"ops.l2topk != bruteforce_topk, batch {i}")
+        check(same(path["uint8"][i], path["float32"][i]),
+              f"uint8 ops.l2topk_q != float32 ops.l2topk, batch {i}")
+        check(same(path["int8"][i], qd.l2topk_q_ref(
+            qi8[b:b + BATCH], i8, i8sq, k=SCAN_K, out_scale=s8)),
+              f"int8 ops.l2topk_q != its plain version, batch {i}")
+    log(f"[scan] on all {N_QUERIES} queries: ops.l2topk ids and dists bitwise "
+        f"equal to bruteforce_topk; uint8 ops.l2topk_q equal to ops.l2topk; "
+        f"int8 ops.l2topk_q bitwise equal to its plain version")
+    del path
+    torch.cuda.empty_cache()
+    err = scan_kernel_checks(tabs, g)
+    timing = scan_timing(tabs)
+    return {name: {"launches": launches[name], "err": err[name],
+                   "timing": timing[name]} for name in launches}
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_row(name, source, replaces, launches, err, timing, bound_by):
@@ -751,14 +1040,14 @@ def kernel_row(name, source, replaces, launches, err, timing, bound_by):
             "ms": timing and timing["ms"],
             "plain_ms": timing and timing["plain_ms"],
             "bound_ms": timing and timing["bound_ms"], "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": timing and timing.get("library_ms")}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernel,main,quant",
-                    help="comma list of kernel,main,quant (card and build "
-                         "always run; quant needs main)")
+    ap.add_argument("--phases", default="kernel,main,quant,scan",
+                    help="comma list of kernel,main,quant,scan (card and "
+                         "build always run; quant needs main)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -797,7 +1086,7 @@ def main(argv=None) -> int:
             log(f"[build] {name}: {line.strip()}")
 
     kern = {}
-    main_out = timing = quant = None
+    main_out = timing = quant = scan = None
     with tempfile.TemporaryDirectory() as tmp, \
             concurrent.futures.ProcessPoolExecutor(
                 max_workers=3,
@@ -838,6 +1127,10 @@ def main(argv=None) -> int:
                          for dt in ("uint8", "int8")}
                 quant["pq"] = pq_phase(paths["pq"], data, queries,
                                        main_out["gt"])
+    # 7. scan
+    if "scan" in phases:
+        torch.cuda.empty_cache()
+        scan = scan_phase(seed=1)
 
     trav = ("src/repro_torch/kernels/csrc/traversal.cu",
             "src/repro/kernels/traversal.py:234")
@@ -858,6 +1151,17 @@ def main(argv=None) -> int:
         # top-k); it runs only against its plain version
         launches = pq["launches"] if pq and name == "pq_topk" else 0
         rows.append(kernel_row(name, qsrc, replaces, launches, kern.get(name),
+                               t, t["bound_by"] if t else "operations"))
+    csrc = "src/repro_torch/kernels/csrc/"
+    for name, source, replaces in (
+            ("l2topk", "l2topk.cu", "src/repro/kernels/l2topk.py:65"),
+            ("l2dist", "l2dist.cu", "src/repro/kernels/l2dist.py:57"),
+            ("l2dist_q", "l2dist.cu", "src/repro/kernels/qdist.py:77"),
+            ("l2topk_q", "l2topk.cu", "src/repro/kernels/qdist.py:158")):
+        sc = scan[name] if scan else None
+        t = sc and sc["timing"]
+        rows.append(kernel_row(name, csrc + source, replaces,
+                               sc["launches"] if sc else 0, sc and sc["err"],
                                t, t["bound_by"] if t else "operations"))
     log(f"[done] {time.perf_counter() - t_all:.1f}s")
     print(smi)

@@ -23,17 +23,17 @@
 // looked up for all kQ queries, so a row is read once per CTA.
 //
 // pq_topk keeps, per thread and query, a sorted list of its k best
-// (distance, row) in local memory; a row enters only if it beats the
-// list's last entry. The CTA then merges its threads' lists in k rounds
-// of a block-wide minimum. The order is total — by distance, then by row
-// id, so among equal distances the lower row wins, as `lax.top_k` and
-// `_select_k` give — which makes the result independent of how rows are
-// split. So the rows are split into S ranges (grid.x), each CTA writes a
-// partial list [Bq, S, k], and a second kernel merges the S lists of a
-// query by ranks in that order. Blocks run in no order and share nothing.
-// Rows with distance +inf (padding) never enter a list; a slot that no
-// finite distance fills holds (+inf, -1). Ragged Bx is masked here, not
-// padded.
+// (distance, row) in local memory (topk.cuh's ThreadLists); a row enters
+// only if it beats the list's last entry. The CTA then merges its
+// threads' lists in k rounds of a block-wide minimum. The order is total —
+// by distance, then by row id, so among equal distances the lower row
+// wins, as `lax.top_k` and `_select_k` give — which makes the result
+// independent of how rows are split. So the rows are split into S ranges
+// (grid.x), each CTA writes a partial list [Bq, S, k], and a second kernel
+// (topk.cuh's merge_splits_kernel) merges the S lists of a query by ranks
+// in that order. Blocks run in no order and share nothing. Rows with
+// distance +inf (padding) never enter a list; a slot that no finite
+// distance fills holds (+inf, -1). Ragged Bx is masked here, not padded.
 //
 // What bounds it on this card: per (query, row) M shared-memory lookups
 // at data-dependent addresses and M float adds, against M bytes of codes
@@ -51,11 +51,13 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "topk.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 64;
+constexpr int kMaxK = topk::kMaxK;
 constexpr int kMaxSplits = 32;
 
 // Add the lookups of the 4 codes packed in word c (subspaces m..m+3) to
@@ -117,11 +119,6 @@ __device__ __forceinline__ void load_luts(const float* __restrict__ luts,
   __syncthreads();
 }
 
-// (d, id) order: by distance, then by row id.
-__device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
-  return da < db || (da == db && ia < ib);
-}
-
 template <int kQ>
 __global__ void __launch_bounds__(kThreads)
 pq_adc_kernel(const float* __restrict__ luts,      // [Bq, M, 256]
@@ -168,17 +165,8 @@ pq_topk_partial_kernel(const float* __restrict__ luts,
   load_luts<kQ>(luts, lut_s, q0, Bq, M);
 
   // this thread's sorted lists, one per query
-  float td[kQ][kMaxK];
-  int ti[kQ][kMaxK];
-  float kth[kQ];
-#pragma unroll
-  for (int qi = 0; qi < kQ; ++qi) {
-    for (int j = 0; j < K; ++j) {
-      td[qi][j] = CUDART_INF_F;
-      ti[qi][j] = -1;
-    }
-    kth[qi] = CUDART_INF_F;
-  }
+  topk::ThreadLists<kQ> lists;
+  lists.init(K);
 
   const long long lo = static_cast<long long>(s) * chunk;
   const long long hi = min(static_cast<long long>(Bx), lo + chunk);
@@ -189,20 +177,8 @@ pq_topk_partial_kernel(const float* __restrict__ luts,
     for (int qi = 0; qi < kQ; ++qi) acc[qi] = base;
     adc_row<kQ>(codes + x * M, M, vec, lut_s, acc);
 #pragma unroll
-    for (int qi = 0; qi < kQ; ++qi) {
-      // rows arrive in increasing id, so a strict < keeps (d, id) order
-      if (acc[qi] < kth[qi]) {
-        int j = K - 1;
-        while (j > 0 && td[qi][j - 1] > acc[qi]) {
-          td[qi][j] = td[qi][j - 1];
-          ti[qi][j] = ti[qi][j - 1];
-          --j;
-        }
-        td[qi][j] = acc[qi];
-        ti[qi][j] = static_cast<int>(x);
-        kth[qi] = td[qi][K - 1];
-      }
-    }
+    for (int qi = 0; qi < kQ; ++qi)
+      lists.offer(qi, acc[qi], static_cast<int>(x), K);   // x increases
   }
 
   // merge the threads' lists: K rounds of a block-wide (d, id) minimum
@@ -212,12 +188,12 @@ pq_topk_partial_kernel(const float* __restrict__ luts,
     int head = 0;
     const long long obase = (static_cast<long long>(q0 + qi) * S + s) * K;
     for (int r = 0; r < K; ++r) {
-      float d = head < K ? td[qi][head] : CUDART_INF_F;
-      int id = head < K ? ti[qi][head] : -1;
+      float d = head < K ? lists.d[qi][head] : CUDART_INF_F;
+      int id = head < K ? lists.i[qi][head] : -1;
       for (int o = 16; o > 0; o >>= 1) {
         const float od = __shfl_xor_sync(0xffffffffu, d, o);
         const int oi = __shfl_xor_sync(0xffffffffu, id, o);
-        if (before(od, oi, d, id)) { d = od; id = oi; }
+        if (topk::before(od, oi, d, id)) { d = od; id = oi; }
       }
       if (lane == 0) { red_d[warp] = d; red_i[warp] = id; }
       __syncthreads();
@@ -225,7 +201,7 @@ pq_topk_partial_kernel(const float* __restrict__ luts,
         float bd = red_d[0];
         int bi = red_i[0];
         for (int w = 1; w < kWarps; ++w)
-          if (before(red_d[w], red_i[w], bd, bi)) { bd = red_d[w]; bi = red_i[w]; }
+          if (topk::before(red_d[w], red_i[w], bd, bi)) { bd = red_d[w]; bi = red_i[w]; }
         win_d = bd;
         win_i = bi;
         part_d[obase + r] = bd;
@@ -233,43 +209,8 @@ pq_topk_partial_kernel(const float* __restrict__ luts,
       }
       __syncthreads();
       // row ids are unique across threads: exactly one owner advances
-      if (win_i >= 0 && head < K && ti[qi][head] == win_i) ++head;
+      if (win_i >= 0 && head < K && lists.i[qi][head] == win_i) ++head;
       __syncthreads();                            // win_* is rewritten next round
-    }
-  }
-}
-
-// Pass 2 of pq_topk: query q's S partial lists -> its k best, each entry
-// placed at its rank in (d, id) order; empty entries (id -1) are skipped.
-__global__ void __launch_bounds__(kThreads)
-pq_topk_merge_kernel(const float* __restrict__ part_d,
-                     const int* __restrict__ part_i,
-                     float* __restrict__ out_d,      // [Bq, K]
-                     int* __restrict__ out_i,        // [Bq, K]
-                     int S, int K) {
-  __shared__ float cd[kMaxSplits * kMaxK];
-  __shared__ int ci[kMaxSplits * kMaxK];
-  const long long q = blockIdx.x;
-  const int n = S * K;
-  for (int c = threadIdx.x; c < n; c += kThreads) {
-    cd[c] = part_d[q * n + c];
-    ci[c] = part_i[q * n + c];
-  }
-  for (int j = threadIdx.x; j < K; j += kThreads) {
-    out_d[q * K + j] = CUDART_INF_F;
-    out_i[q * K + j] = -1;
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < n; c += kThreads) {
-    const int id = ci[c];
-    if (id < 0) continue;
-    const float d = cd[c];
-    int rank = 0;
-    for (int o = 0; o < n && rank < K; ++o)
-      rank += ci[o] >= 0 && before(cd[o], ci[o], d, id);
-    if (rank < K) {
-      out_d[q * K + rank] = d;
-      out_i[q * K + rank] = id;
     }
   }
 }
@@ -310,10 +251,10 @@ int launch_topk(const void* luts, const void* codes, const void* xpad,
       static_cast<int*>(part_i), Bq, Bx, M, vec, K, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  pq_topk_merge_kernel<<<Bq, kThreads, 0, stream>>>(
+  return static_cast<int>(topk::merge_splits<kThreads>(
       static_cast<const float*>(part_d), static_cast<const int*>(part_i),
-      static_cast<float*>(out_d), static_cast<int*>(out_i), S, K);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<float*>(out_d), static_cast<int*>(out_i), Bq, S, K, 1.f,
+      stream));
 }
 
 }  // namespace

@@ -7,7 +7,13 @@ from one to the other.
 
 from __future__ import annotations
 
+from repro_torch.kernels.l2dist import l2dist_cuda, l2dist_ref
+from repro_torch.kernels.l2topk import l2topk_cuda, l2topk_ref
 from repro_torch.kernels.qdist import (
+    l2dist_q_cuda,
+    l2dist_q_ref,
+    l2topk_q_cuda,
+    l2topk_q_ref,
     pq_adc_cuda,
     pq_adc_ref,
     pq_topk_cuda,
@@ -18,7 +24,8 @@ from repro_torch.kernels.traversal import (
     fused_traversal_ref,
 )
 
-__all__ = ["fused_layer0", "pq_adc", "pq_topk"]
+__all__ = ["fused_layer0", "l2dist", "l2dist_q", "l2topk", "l2topk_q",
+           "pq_adc", "pq_topk"]
 
 
 def _pick(t, cuda_fn, plain_fn, what: str):
@@ -54,3 +61,34 @@ def pq_topk(luts, codes, xpad=None, *, k: int = 10):
     int32); unfilled slots are (+inf, -1) (kernels/qdist.py)."""
     fn = _pick(luts, pq_topk_cuda, pq_topk_ref, "pq_topk")
     return fn(luts, codes, xpad, k=k)
+
+
+def l2dist(queries, xs, *, metric: str = "l2"):
+    """Pairwise distances [Bq, Bx] float32 under `metric` (kernels/l2dist.py):
+    l2 `(qsq + xsq) - 2 q.x` (no clamp), ip `-q.x`, cosine `1 - q.x` over
+    unit-norm rows."""
+    return _pick(xs, l2dist_cuda, l2dist_ref, "l2dist")(queries, xs,
+                                                        metric=metric)
+
+
+def l2topk(queries, xs, xsq=None, *, k: int = 10):
+    """Fused exact k-NN (kernels/l2topk.py): (dists [Bq, k] ascending, ids
+    [Bq, k] int32) of `max(l2, 0)`; `xsq` [Bx] defaults to the rows' sums
+    of squares, +inf marks padding rows; ties go to the lower row, unfilled
+    slots are (+inf, -1). The kernel takes k <= 64."""
+    return _pick(xs, l2topk_cuda, l2topk_ref, "l2topk")(queries, xs, xsq, k=k)
+
+
+def l2dist_q(queries, xs, *, out_scale: float = 1.0):
+    """Code-space distance matrix over uint8 / int8 rows
+    (kernels/qdist.py): `max(l2, 0) * out_scale`, [Bq, Bx] float32."""
+    fn = _pick(xs, l2dist_q_cuda, l2dist_q_ref, "l2dist_q")
+    return fn(queries, xs, out_scale=out_scale)
+
+
+def l2topk_q(queries, xs, xsq=None, *, k: int = 10, out_scale: float = 1.0):
+    """Fused k-NN over uint8 / int8 code rows (kernels/qdist.py): selected
+    in code space, distances times `out_scale` after; as `l2topk`
+    otherwise."""
+    fn = _pick(xs, l2topk_q_cuda, l2topk_q_ref, "l2topk_q")
+    return fn(queries, xs, xsq, k=k, out_scale=out_scale)

@@ -1,5 +1,20 @@
-"""Product-quantization ADC (dtype="pq"): the plain PyTorch versions and
-the wrappers of their CUDA kernels.
+"""Distances over quantized rows: the exact scans over 8-bit code rows
+(`l2dist_q`, `l2topk_q`) and the product-quantization ADC (dtype="pq"),
+the plain PyTorch versions and the wrappers of their CUDA kernels.
+
+    l2dist_q: queries [Bq, D] x codes [Bx, D] uint8 / int8
+              -> d [Bq, Bx] f32 = max(code-space squared L2, 0) * out_scale
+    l2topk_q: the k smallest of each row of that matrix, never materialized;
+              the selection is made in code space and `out_scale` (the
+              quantizer's scale^2) multiplies the k winners after it
+              -> (dists [Bq, k] f32 ascending, ids [Bq, k] int32)
+
+Queries are codes or code-valued float32; codes are widened to float32
+(int8 sign-extended), so at D <= 256 every dot product is an exact
+integer and kernel, plain version and reference agree bitwise. These run
+on `csrc/l2dist.cu` / `csrc/l2topk.cu` (see `kernels/l2dist.py`,
+`kernels/l2topk.py`; the same order, pad and tail rules) and count their
+launches in `L2DIST_Q_LAUNCHES` / `L2TOPK_Q_LAUNCHES`.
 
     pq_adc : luts [Bq, M, 256] f32 x codes [Bx, M] uint8 (+ xpad [Bx] f32)
              -> d [Bq, Bx] f32,  d[q, x] = xpad[x] + sum_m lut[q, m, code[x, m]]
@@ -17,11 +32,10 @@ finite distance fills (fewer than k rows, or padding rows) holds
 (+inf, -1). There the reference returns ids that depend on its block
 size; the finite slots agree.
 
-`pq_adc_ref` / `pq_topk_ref` are the plain versions: the CPU path and the
-yardstick the kernels are compared with on the card. `pq_adc_cuda` /
-`pq_topk_cuda` launch `csrc/qdist.cu` (built by `_build.py`) and count
-their launches in `ADC_LAUNCHES` / `TOPK_LAUNCHES`. `ops.pq_adc` /
-`ops.pq_topk` pick one by the tensors' device.
+`*_ref` are the plain versions: the CPU path and the yardstick the
+kernels are compared with on the card. `pq_adc_cuda` / `pq_topk_cuda`
+launch `csrc/qdist.cu` (built by `_build.py`) and count their launches in
+`ADC_LAUNCHES` / `TOPK_LAUNCHES`. `ops.*` pick one by the tensors' device.
 """
 
 from __future__ import annotations
@@ -31,13 +45,25 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.l2dist import (
+    distance_matrix_ref,
+    launch_distance_matrix,
+)
+from repro_torch.kernels.l2topk import fused_topk_ref, launch_fused_topk
 
-__all__ = ["ADC_LAUNCHES", "TOPK_LAUNCHES", "MAX_K", "pq_adc_ref",
-           "pq_topk_ref", "pq_adc_cuda", "pq_topk_cuda"]
+__all__ = ["ADC_LAUNCHES", "TOPK_LAUNCHES", "L2DIST_Q_LAUNCHES",
+           "L2TOPK_Q_LAUNCHES", "MAX_K", "l2dist_q_ref", "l2dist_q_cuda",
+           "l2topk_q_ref", "l2topk_q_cuda", "pq_adc_ref", "pq_topk_ref",
+           "pq_adc_cuda", "pq_topk_cuda"]
 
 # launches of each CUDA kernel since import (or since a caller reset them)
 ADC_LAUNCHES = 0
 TOPK_LAUNCHES = 0
+L2DIST_Q_LAUNCHES = 0
+L2TOPK_Q_LAUNCHES = 0
+
+# row types of the 8-bit scans
+_CODE_DTYPES = (torch.uint8, torch.int8)
 
 # shape limits of csrc/qdist.cu: k per query, splits of the rows, and
 # subspaces (M * 1 KB of table per query must fit in shared memory)
@@ -50,6 +76,18 @@ _ADC_CTAS, _TOPK_CTAS = 8 * 132, 4 * 132
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
+
+
+def l2dist_q_ref(queries, xs, xsq=None, *, out_scale: float = 1.0):
+    """Code-space distance matrix [Bq, Bx]: max(squared L2, 0) * out_scale."""
+    return distance_matrix_ref(queries, xs, xsq, out_scale=out_scale)
+
+
+def l2topk_q_ref(queries, xs, xsq=None, *, k: int = 10,
+                 out_scale: float = 1.0):
+    """(dists [Bq, k] ascending, ids [Bq, k] int32) over code rows, selected
+    in code space, then times out_scale; unfilled slots are (+inf, -1)."""
+    return fused_topk_ref(queries, xs, xsq, k=k, out_scale=out_scale)
 
 
 def pq_adc_ref(luts, codes, xpad=None):
@@ -181,3 +219,27 @@ def pq_topk_cuda(luts, codes, xpad=None, *, k: int = 10):
     _raise_on(lib, err, "pq_topk")
     TOPK_LAUNCHES += 1
     return out_d, out_i
+
+
+def l2dist_q_cuda(queries, xs, xsq=None, *, out_scale: float = 1.0):
+    """Launch `csrc/l2dist.cu` over uint8 / int8 code rows on the current
+    stream; returns d [Bq, Bx] float32. Raises on any other device, dtype,
+    shape or layout."""
+    global L2DIST_Q_LAUNCHES
+    out = launch_distance_matrix(queries, xs, xsq, metric="l2",
+                                 out_scale=out_scale,
+                                 row_dtypes=_CODE_DTYPES, what="l2dist_q")
+    L2DIST_Q_LAUNCHES += 1
+    return out
+
+
+def l2topk_q_cuda(queries, xs, xsq=None, *, k: int = 10,
+                  out_scale: float = 1.0):
+    """Launch `csrc/l2topk.cu` over uint8 / int8 code rows on the current
+    stream; returns (dists [Bq, k] float32, ids [Bq, k] int32). k <= 64;
+    raises on any other device, dtype, shape or layout."""
+    global L2TOPK_Q_LAUNCHES
+    out = launch_fused_topk(queries, xs, xsq, k=k, out_scale=out_scale,
+                            row_dtypes=_CODE_DTYPES, what="l2topk_q")
+    L2TOPK_Q_LAUNCHES += 1
+    return out
