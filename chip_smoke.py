@@ -79,6 +79,34 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                beside its plain version, a library yardstick (torch.addmm,
                then torch.topk for the fused scans; timed only) and its
                bound.
+  8. lm      — the LM substrate, last, after torch.cuda.empty_cache():
+               deepseek-v2-lite-16b at full width and depth (27 layers, d
+               2048, 16 MLA heads, 64 experts top-6, vocab 102,400; 15.7 B
+               parameters, bf16) with the router through the topk kernel,
+               built on the card from torch.Generator("cuda").manual_seed(0)
+               by `init_params`. B=8 seeded prompts of T=2,048 tokens,
+               `prefill_step` into a 2,080-position MLA cache, then 32
+               greedy `decode_step`s, the topk and flash_attention launch
+               counters reset just before and read just after. Checks: (a)
+               the topk kernel bitwise equal to its plain version on the
+               router's own [16,384, 64] rows (k=6) and at [256, 1M] (k=10)
+               with ties and +inf; (b) the flash kernel within FLASH_TOL of
+               its plain version at [128, 2048, 192] bf16 causal and at
+               unaligned float32 shapes, causal and full; (c) prefill(256)
+               then decode(256..258) against a prefill over 259 tokens
+               (B=2, capacity raised so that no token is dropped) and (d)
+               the same prefill with ops.topk / ops.flash_attention swapped
+               for their plain versions: bf16 logits within LM_TOL_BF16 x
+               max |logit| and the greedy token equal on LM_GREEDY_SHARE
+               of the rows; then (c) and (d) again in float32 at full
+               width, depth 1 + 2, within the reference's 2e-3 with every
+               greedy token equal; (e) 26 topk and 27 flash
+               launches a prefill, 26 topk a decode step. Prints prefill ms
+               and tokens/s, decode p50 / p99 ms a step and tokens/s, peak
+               memory, a torch.profiler split of one prefill and one
+               decode step, and each kernel beside its plain version, a
+               library call (torch.topk, scaled_dot_product_attention;
+               timed only) and its bound.
 
 Each serving path prints QPS and p50/p99 per 256-query batch. The line
 before the last is {"kernels": [...]} with each kernel's launches on its
@@ -91,6 +119,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import multiprocessing
 import subprocess
@@ -118,6 +147,26 @@ HNSW_M, HNSW_EFC, P_MAIN = 16, 100, 4
 # within SCAN_TOL * (|q|^2 + |x|^2) (sums in another order; see
 # tests/test_torch_scan.py)
 N_SCAN, SCAN_K, SCAN_TOL = 1_000_000, 10, 1e-5
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
+# the lm phase: deepseek-v2-lite-16b, B prompts of T tokens, a cache of S
+# positions, greedy decode steps; the router's k; (c)'s prompt length
+LM_ARCH, LM_B, LM_T, LM_S, LM_STEPS = "deepseek_v2_lite_16b", 8, 2048, 2080, 32
+LM_TOPK, LM_C_T, LM_TOPK_WIDE = 6, 256, (256, 1_000_000)
+# flash kernel against its plain version: |d| <= rel x max(|got|, |want|)
+# + abs; float32 sums in another order, bf16 one rounding of the same
+# float32 value (one bf16 spacing)
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-6)}
+# (c) decode against prefill and (d) plain versions against the kernels.
+# bf16 at full depth: max |d logits| <= LM_TOL_BF16 x max |logit|, the
+# greedy token equal on LM_GREEDY_SHARE of the rows, and a differing one
+# only where the row's difference can explain it (compare_logits). Two
+# orders of bf16 rounding at ~10 points a layer, and the router's
+# near-ties that bf16 logits make common, moved the random-weight model's
+# logits by 13-16 % of their max over 27 layers (PERF.md §6); a wrong
+# position, cache slot or mask moves them by their own scale. float32 at
+# depth 1 + LM_F32_PERIODS, where the same checks differ by 1e-5: the
+# reference's own 2e-3 (tests/test_models.py), every greedy token equal.
+LM_TOL_BF16, LM_GREEDY_SHARE, LM_TOL_F32, LM_F32_PERIODS = 0.25, 0.5, 2e-3, 2
 
 
 def check(cond, msg: str) -> None:
@@ -1032,6 +1081,452 @@ def scan_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the LM substrate, DeepSeek-V2-Lite at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def lm_config(**moe):
+    """deepseek-v2-lite-16b as the port's registry gives it, the router
+    through the topk kernel (the reference's own `router_use_kernel`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, router_use_kernel=True, **moe))
+
+
+@contextlib.contextmanager
+def swapped_ops(topk_fn=None, flash_fn=None):
+    """ops.topk / ops.flash_attention replaced while the block runs (the
+    model modules call them through `ops`)."""
+    from repro_torch.kernels import ops
+
+    saved = ops.topk, ops.flash_attention
+    ops.topk = topk_fn or saved[0]
+    ops.flash_attention = flash_fn or saved[1]
+    try:
+        yield
+    finally:
+        ops.topk, ops.flash_attention = saved
+
+
+def profile_split(fn) -> dict:
+    """Device ms of one call of fn by torch.profiler: the flash and router
+    kernels by name, the expert einsums and the decode attention by their
+    `record_function` ranges, the rest by difference; and the wall ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ranges = ("moe.experts", "mla.decode_attention")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and e.name not in ranges]
+    ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3  # noqa: E731
+    out = {"wall_ms": wall, "device_ms": ms(kern),
+           "attention_ms": ms(e for e in kern
+                              if "flash_attention_kernel" in e.name),
+           "router_ms": ms(e for e in kern if "select_k_kernel" in e.name)}
+    for name in ranges:
+        out[name] = sum(e.device_time_total for e in events
+                        if e.name == name and e.device_type == DeviceType.CPU
+                        ) / 1e3
+    out["rest_ms"] = (out["device_ms"] - out["attention_ms"]
+                      - out["router_ms"] - out["moe.experts"]
+                      - out["mla.decode_attention"])
+    by_name: dict = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    out["top"] = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out["kernels"] = len(kern)
+    return out
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device ms of one fn() call by torch.profiler: the durations of every
+    kernel it launches, summed over `reps` calls after a warm-up and
+    divided by reps. Unlike CUDA events around a call, host time between
+    launches does not count, so a call whose host side outlasts its
+    kernels is timed by its kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+def log_split(what: str, s: dict) -> None:
+    log(f"[lm] split of {what} (torch.profiler, device ms): flash attention "
+        f"kernel {s['attention_ms']:.3f}, decode attention (plain torch) "
+        f"{s['mla.decode_attention']:.3f}, router topk kernel "
+        f"{s['router_ms']:.3f}, expert einsums {s['moe.experts']:.3f}, rest "
+        f"{s['rest_ms']:.3f}; device busy {s['device_ms']:.3f} of "
+        f"{s['wall_ms']:.3f} wall (idle share "
+        f"{1 - s['device_ms'] / s['wall_ms']:.3f}), {s['kernels']} kernels")
+    log(f"[lm]   kernels with the most device time: " + "; ".join(
+        f"{name[:70]} {us / 1e3:.3f} ms" for name, us in s["top"]))
+
+
+def lm_topk_checks(router_neg, g) -> float:
+    """(a) the topk kernel bitwise equal to its plain version on the
+    router's own [B*T, E] rows and at LM_TOPK_WIDE ([256, 1M]), k=10, with
+    ties and +inf entries. Returns the largest |kernel - plain| over
+    finite values (0)."""
+    from repro_torch.kernels import topk
+
+    cases = [("router rows", router_neg, LM_TOPK)]
+    big = torch.round(torch.randn(LM_TOPK_WIDE, generator=g,
+                                  device=DEVICE) * 16) / 16     # many ties
+    big[:, 7::11] = float("inf")
+    big[3] = float("inf")
+    big[5, 1000:] = float("inf")
+    cases.append(("ties and +inf", big, 10))
+    worst = 0.0
+    for what, x, kk in cases:
+        got, want = topk.topk_cuda(x, kk), topk.topk_ref(x, kk)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"topk kernel != plain on {what}")
+        fin = torch.isfinite(want[0])
+        worst = max(worst, float((got[0][fin] - want[0][fin]).abs().max()))
+        log(f"[lm] (a) topk {list(x.shape)}, k={kk}, {what}: values and ids "
+            f"bitwise equal to its plain version "
+            f"({int((want[1] < 0).sum())} unfilled slots, (+inf, -1) in both)")
+    del big
+    return worst
+
+
+def lm_flash_checks(path_shape, g) -> float:
+    """(b) the flash kernel within FLASH_TOL of its plain version: at MLA
+    prefill's [B*H, T, qk_nope + qk_rope] bf16 causal, and at unaligned
+    float32 shapes, causal and full. Returns the largest |kernel - plain|
+    at the path's shape."""
+    from repro_torch.kernels import attention
+
+    bh, t, hd = path_shape
+    cases = [((bh, t, t, hd), torch.bfloat16, True),
+             ((6, 1000, 1000, 100), torch.float32, True),
+             ((6, 1000, 777, 100), torch.float32, False),
+             ((5, 333, 333, 192), torch.float32, True),
+             ((3, 129, 200, 17), torch.float32, False)]
+    path_err = 0.0
+    for (bh, t, s, hd), dtype, causal in cases:
+        q, k, v = (torch.randn((bh, n, hd), generator=g, device=DEVICE).to(
+            dtype) for n in (t, s, s))
+        got = attention.flash_attention_cuda(q, k, v, causal=causal).float()
+        want = attention.flash_attention_ref(q, k, v, causal=causal).float()
+        rel, absol = FLASH_TOL[dtype]
+        tol = rel * torch.maximum(got.abs(), want.abs()) + absol
+        err = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= tol).all()),
+              f"flash_attention kernel beyond the tolerance at "
+              f"{[bh, t, s, hd]} {dtype} causal={causal}: max {err}")
+        if (bh, t, s, hd) == cases[0][0]:
+            path_err = err
+        log(f"[lm] (b) flash_attention [{bh}, {t}, {hd}] x S={s} {dtype}, "
+            f"causal={causal}: within {rel:g} x |out| + {absol:g} of its "
+            f"plain version (max |d| {err:.3g})")
+        del q, k, v, got, want, tol
+    return path_err
+
+
+def lm_timing(router_neg, path_shape, g, reps: int = 5) -> dict:
+    """Each kernel, its plain version and a library call at the path's
+    shapes (device ms, median of `reps`), and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention, topk
+
+    out = {}
+    b, e = router_neg.shape
+    calls = {"ms": lambda: topk.topk_cuda(router_neg, LM_TOPK),
+             "plain_ms": lambda: topk.topk_ref(router_neg, LM_TOPK),
+             "library_ms": lambda: torch.topk(router_neg, LM_TOPK, dim=1,
+                                              largest=False)}
+    # the router's calls are microseconds of device work: time them by
+    # their kernels (device_ms); CUDA events around a call would time the
+    # host's wrapper, printed beside for that reason
+    t = {k: device_ms(fn) for k, fn in calls.items()}
+    events = {k: median_ms(fn, reps) for k, fn in calls.items()}
+    nbytes = b * e * 4 + b * LM_TOPK * 8
+    t["bound_ms"], t["bound_by"] = bound(nbytes, b * e, FP32_FLOPS)
+    out["topk"] = t
+    # one CTA's 8 rows (a decode step's call): the launch and one warp's
+    # list upkeep
+    one = device_ms(lambda: topk.topk_cuda(router_neg[:8], LM_TOPK))
+    log(f"[lm] timing topk [{b}, {e}], k={LM_TOPK} (the router's rows), "
+        f"device time of its kernels: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, library (torch.topk) {t['library_ms']:.4f} "
+        f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}: "
+        f"{nbytes / 1e6:.2f} MB); kernel at [8, {e}] (one CTA) {one:.4f} ms; "
+        f"CUDA events around one call (host wrapper included): kernel "
+        f"{events['ms']:.4f}, plain {events['plain_ms']:.4f}, library "
+        f"{events['library_ms']:.4f} ms")
+    bh, T, hd = path_shape
+    q, k, v = (torch.randn((bh, T, hd), generator=g, device=DEVICE).to(
+        torch.bfloat16) for _ in range(3))
+    q4, k4, v4 = (x.view(LM_B, bh // LM_B, T, hd) for x in (q, k, v))
+    t = {"ms": median_ms(lambda: attention.flash_attention_cuda(q, k, v),
+                         reps),
+         "plain_ms": median_ms(lambda: attention.flash_attention_ref(q, k, v),
+                               reps),
+         "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+             q4, k4, v4, is_causal=True), reps)}
+    flops = 4.0 * bh * hd * T * (T + 1) / 2       # the causal pairs visited
+    nbytes = 4 * bh * T * hd * 2
+    t["bound_ms"], t["bound_by"] = bound(nbytes, flops, FP32_FLOPS)
+    out["flash_attention"] = t
+    log(f"[lm] timing flash_attention [{bh}, {T}, {hd}] bf16 causal (one MLA "
+        f"prefill layer): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+        f"ms, library (scaled_dot_product_attention) {t['library_ms']:.4f} ms, "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {flops / 1e9:.1f} "
+        f"GFLOP at FP32 67 TFLOP/s; {flops / BF16_FLOPS * 1e3:.4f} ms at the "
+        f"bf16 tensor cores' 989 TFLOP/s; {nbytes / 1e6:.0f} MB "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    return out
+
+
+def lm_invariant(model, cfg, toks) -> list:
+    """The reference's invariant (tests/test_models.py): prefill(T) then
+    decode(T..T+2) against a prefill over T+3 tokens at those positions;
+    returns the (got, want) logits pairs [B, V] of the four positions."""
+    from repro_torch.models.model import decode_step, prefill_step
+    from repro_torch.models.transformer import (
+        compute_logits,
+        forward,
+        init_cache,
+    )
+
+    b, n = toks.shape
+    t = n - 3
+    with torch.no_grad():
+        hidden, _, _ = forward(model, cfg, toks, mode="prefill")
+        full = compute_logits(model, cfg, hidden)
+    cache = init_cache(cfg, b, n, dtype=cfg.param_dtype, device=DEVICE)
+    got, cache = prefill_step(model, {"inputs": toks[:, :t]}, cache, cfg)
+    pairs = [(got[:, 0], full[:, t - 1])]
+    for pos in range(t, n):
+        got, cache = decode_step(model, toks[:, pos:pos + 1], cache, pos, cfg)
+        pairs.append((got[:, 0], full[:, pos]))
+    return pairs
+
+
+def compare_logits(what: str, pairs, V: int, tol) -> None:
+    """Gate (got, want) logits pairs [B, V]. bf16 (`tol` None): within
+    LM_TOL_BF16 x max |logit|, the greedy token equal on LM_GREEDY_SHARE
+    of the rows, and a row's greedy token may differ only where the
+    wanted top-2 margin is within twice that row's max |d|, where the
+    difference itself can swap the two. float32: |d| <= tol + tol |want|
+    and every greedy token equal."""
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    scale = max(float(b.abs().max()) for _, b in pairs)
+    same, n, flips = 0, 0, []
+    for a, b in pairs:
+        eq = a[:, :V].argmax(-1) == b[:, :V].argmax(-1)
+        same, n = same + int(eq.sum()), n + a.shape[0]
+        top2 = b[:, :V].topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        row_err = (a - b).abs().amax(-1)
+        flips += [(float(m), float(r)) for m, r, e in
+                  zip(margin, row_err, eq) if not e]
+    log(f"[lm] {what}: max |d logits| {err:.6f} (max |logit| {scale:.3f}), "
+        f"greedy token equal on {same}/{n}"
+        + (f"; (top-2 margin, row max |d|) where it differs: "
+           + ", ".join(f"({m:.4f}, {r:.4f})" for m, r in flips)
+           if flips else ""))
+    if tol is None:
+        check(err <= LM_TOL_BF16 * scale and same >= LM_GREEDY_SHARE * n,
+              f"{what}: beyond {LM_TOL_BF16} x max |logit| or greedy tokens "
+              f"equal on {same}/{n} only")
+        check(all(m <= 2 * r for m, r in flips),
+              f"{what}: a greedy token differs where its margin exceeds "
+              f"twice the row's difference: {flips}")
+    else:
+        ok = all(bool(((a - b).abs() <= tol + tol * b.abs()).all())
+                 for a, b in pairs)
+        check(ok and same == n, f"{what}: beyond {tol} or greedy tokens "
+              f"equal on {same}/{n} only")
+
+
+def lm_f32_checks(prompts, g) -> None:
+    """(c) and (d) again in float32 at full width and depth 1 + LM_F32_PERIODS
+    (the prefix layer and the first MoE periods), where rounding cannot
+    hide a fault: both held to the reference's own 2e-3."""
+    import dataclasses
+
+    from repro_torch.kernels.attention import flash_attention_ref
+    from repro_torch.kernels.topk import topk_ref
+    from repro_torch.models.model import prefill_step
+    from repro_torch.models.transformer import init_cache, init_params
+
+    cfg = dataclasses.replace(lm_config(), num_periods=LM_F32_PERIODS,
+                              param_dtype=torch.float32)
+    model = init_params(cfg, device=DEVICE, generator=g)
+    toks = prompts[:2, :LM_C_T + 3]
+    no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    compare_logits(f"(c) float32, depth 1+{LM_F32_PERIODS}: prefill("
+                   f"{LM_C_T}) + decode x3 against prefill({LM_C_T + 3}), "
+                   f"B=2, no drops", lm_invariant(model, no_drop, toks),
+                   cfg.vocab_size, LM_TOL_F32)
+    outs = []
+    for swap in ({}, {"topk_fn": topk_ref, "flash_fn": flash_attention_ref}):
+        cache = init_cache(cfg, 2, LM_C_T, dtype=cfg.param_dtype,
+                           device=DEVICE)
+        with swapped_ops(**swap):
+            outs.append(prefill_step(model, {"inputs": toks[:, :LM_C_T]},
+                                     cache, cfg)[0][:, 0])
+    compare_logits(f"(d) float32, depth 1+{LM_F32_PERIODS}: prefill({LM_C_T}"
+                   f") with the plain topk and flash_attention against the "
+                   f"kernels", [(outs[1], outs[0])], cfg.vocab_size,
+                   LM_TOL_F32)
+    del model
+
+
+def lm_phase(seed: int) -> dict:
+    from repro_torch.kernels import attention, topk
+    from repro_torch.kernels.attention import flash_attention_ref
+    from repro_torch.kernels.topk import topk_ref
+    from repro_torch.models.model import decode_step, prefill_step
+    from repro_torch.models.transformer import init_cache, init_params
+
+    dev = torch.device(DEVICE)
+    cfg = lm_config()
+    V = cfg.vocab_size
+    n_moe = sum(s.ffn == "moe" for s in cfg.all_specs())
+    n_attn = cfg.num_layers
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = init_params(cfg, device=dev, generator=g)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} MLA heads, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}, {n_params / 1e9:.3f} B parameters "
+        f"({n_params * 2 / 1e9:.2f} GB bf16) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    prompts = torch.randint(0, V, (LM_B, LM_T), generator=g, device=dev)
+    cache = init_cache(cfg, LM_B, LM_S, dtype=cfg.param_dtype, device=dev)
+    t0 = time.perf_counter()
+    warm, cache = prefill_step(model, {"inputs": prompts}, cache, cfg)
+    decode_step(model, warm[:, -1, :V].argmax(-1)[:, None], cache, LM_T, cfg)
+    torch.cuda.synchronize()
+    log(f"[lm] warm-up prefill and decode step (library loads, cuBLAS "
+        f"set-up; the main path writes the same positions again): "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    # the main path: prefill, then greedy decode steps, counters around it
+    torch.cuda.reset_peak_memory_stats()
+    topk.LAUNCHES = attention.LAUNCHES = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(model, {"inputs": prompts}, cache, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    per_prefill = (topk.LAUNCHES, attention.LAUNCHES)
+    tok = logits[:, -1, :V].argmax(-1)[:, None]
+    first_tok = tok.clone()
+    steps, gen = [], [tok]
+    for i in range(LM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = decode_step(model, tok, cache, LM_T + i, cfg)
+        tok = out[:, -1, :V].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        gen.append(tok)
+    launches = {"topk": topk.LAUNCHES, "flash_attention": attention.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    # (e) the path went through both kernels, once a layer
+    check(per_prefill == (n_moe, n_attn),
+          f"(e) a prefill launched (topk, flash) {per_prefill}, expected "
+          f"({n_moe}, {n_attn})")
+    check(launches == {"topk": n_moe * (1 + LM_STEPS),
+                       "flash_attention": n_attn},
+          f"(e) launches over prefill and {LM_STEPS} decode steps {launches}")
+    gen = torch.cat(gen, 1)
+    check(logits.shape == (LM_B, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(out).all())
+          and bool(((gen >= 0) & (gen < V)).all()),
+          "prefill / decode logits not finite or of the wrong shape")
+    st = np.array(steps)
+    log(f"[lm] prefill {LM_B} x {LM_T} tokens: {prefill_ms:.2f} ms "
+        f"({LM_B * LM_T / prefill_ms * 1e3:.1f} tokens/s); launches "
+        f"topk {per_prefill[0]}, flash_attention {per_prefill[1]}")
+    log(f"[lm] decode {LM_STEPS} greedy steps of {LM_B} at positions "
+        f"{LM_T}..{LM_T + LM_STEPS - 1} (cache {LM_S}): p50 "
+        f"{np.percentile(st, 50):.3f} ms, p99 {np.percentile(st, 99):.3f} ms "
+        f"a step, {LM_B / np.percentile(st, 50) * 1e3:.1f} tokens/s at p50; "
+        f"launches {launches} in all (topk {n_moe} a step)")
+    log(f"[lm] peak memory {peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}; "
+        f"logits finite, greedy tokens of row 0: {gen[0, :8].tolist()}")
+
+    # the split of one prefill and one decode step; the router's rows
+    rows = []
+
+    def recording_topk(x, k):
+        if not rows:
+            rows.append(x.clone())
+        return topk.topk_cuda(x, k)
+
+    with swapped_ops(topk_fn=recording_topk):
+        s_pre = profile_split(
+            lambda: prefill_step(model, {"inputs": prompts}, cache, cfg))
+    log_split(f"one prefill ({LM_B} x {LM_T})", s_pre)
+    s_dec = profile_split(
+        lambda: decode_step(model, first_tok, cache, LM_T, cfg))
+    log_split(f"one decode step (B={LM_B})", s_dec)
+    check(s_pre["attention_ms"] > 0 and s_pre["router_ms"] > 0
+          and s_dec["router_ms"] > 0,
+          "the profiler saw no flash or topk kernel on the device")
+
+    path_shape = (LM_B * cfg.n_heads, LM_T, cfg.mla.qk_nope + cfg.mla.qk_rope)
+    err_topk = lm_topk_checks(rows[0], g)
+    err_flash = lm_flash_checks(path_shape, g)
+    timing = lm_timing(rows[0], path_shape, g)
+    del rows
+    torch.cuda.empty_cache()
+    # (c) decode against prefill, bf16, the capacity raised so that no
+    # token is dropped: a prefill over T and one over T+3 group tokens
+    # differently, so with drops the two differ by design
+    no_drop = lm_config(capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)
+    compare_logits(f"(c) bf16, full depth: prefill({LM_C_T}) + decode x3 "
+                   f"against prefill({LM_C_T + 3}), B=2, no drops",
+                   lm_invariant(model, no_drop, prompts[:2, :LM_C_T + 3]), V,
+                   None)
+    # (d) the same prefill through the plain versions
+    with swapped_ops(topk_fn=topk_ref, flash_fn=flash_attention_ref):
+        plain, _ = prefill_step(model, {"inputs": prompts}, cache, cfg)
+    compare_logits("(d) bf16, full depth: the main prefill with the plain "
+                   "topk and flash_attention against the kernels",
+                   [(plain[:, -1], logits[:, -1])], V, None)
+    del model, cache, plain
+    torch.cuda.empty_cache()
+    lm_f32_checks(prompts, g)
+    torch.cuda.empty_cache()
+    return {"topk": {"launches": launches["topk"], "err": err_topk,
+                     "timing": timing["topk"]},
+            "flash_attention": {"launches": launches["flash_attention"],
+                                "err": err_flash,
+                                "timing": timing["flash_attention"]}}
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_row(name, source, replaces, launches, err, timing, bound_by):
@@ -1045,9 +1540,9 @@ def kernel_row(name, source, replaces, launches, err, timing, bound_by):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernel,main,quant,scan",
-                    help="comma list of kernel,main,quant,scan (card and "
-                         "build always run; quant needs main)")
+    ap.add_argument("--phases", default="kernel,main,quant,scan,lm",
+                    help="comma list of kernel,main,quant,scan,lm (card "
+                         "and build always run; quant needs main)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -1131,6 +1626,11 @@ def main(argv=None) -> int:
     if "scan" in phases:
         torch.cuda.empty_cache()
         scan = scan_phase(seed=1)
+    # 8. lm
+    lm = None
+    if "lm" in phases:
+        torch.cuda.empty_cache()
+        lm = lm_phase(seed=0)
 
     trav = ("src/repro_torch/kernels/csrc/traversal.cu",
             "src/repro/kernels/traversal.py:234")
@@ -1163,6 +1663,15 @@ def main(argv=None) -> int:
         rows.append(kernel_row(name, csrc + source, replaces,
                                sc["launches"] if sc else 0, sc and sc["err"],
                                t, t["bound_by"] if t else "operations"))
+    for name, source, replaces, bound_by in (
+            ("topk", "select_k.cu", "src/repro/kernels/topk.py:78", "bytes"),
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/attention.py:79", "operations")):
+        r = lm[name] if lm else None
+        t = r and r["timing"]
+        rows.append(kernel_row(name, csrc + source, replaces,
+                               r["launches"] if r else 0, r and r["err"], t,
+                               t["bound_by"] if t else bound_by))
     log(f"[done] {time.perf_counter() - t_all:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

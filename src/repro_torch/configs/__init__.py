@@ -1,0 +1,36 @@
+"""Architecture registry of the port: get_config / reduced_config for the
+architectures it runs (the reference's `repro.configs`). Each module
+defines CONFIG (full size) and REDUCED (CPU tests), field for field the
+reference's; the other architectures are queued (ROADMAP.md Queue 1).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCHS = ["deepseek_v2_lite_16b"]
+
+ALIASES = {a.replace("_", "-"): a for a in ARCHS}
+
+__all__ = ["ARCHS", "get_config", "list_archs", "reduced_config"]
+
+
+def _module(name: str):
+    name = ALIASES.get(name, name).replace("-", "_").replace(".", "")
+    if name not in ARCHS:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet (ROADMAP.md Queue 1); "
+            f"ported: {ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str):
+    return _module(name).CONFIG
+
+
+def reduced_config(name: str):
+    return _module(name).REDUCED
+
+
+def list_archs():
+    return list(ARCHS)

@@ -7,6 +7,10 @@ from one to the other.
 
 from __future__ import annotations
 
+from repro_torch.kernels.attention import (
+    flash_attention_cuda,
+    flash_attention_ref,
+)
 from repro_torch.kernels.l2dist import l2dist_cuda, l2dist_ref
 from repro_torch.kernels.l2topk import l2topk_cuda, l2topk_ref
 from repro_torch.kernels.qdist import (
@@ -19,13 +23,14 @@ from repro_torch.kernels.qdist import (
     pq_topk_cuda,
     pq_topk_ref,
 )
+from repro_torch.kernels.topk import topk_cuda, topk_ref
 from repro_torch.kernels.traversal import (
     fused_traversal_cuda,
     fused_traversal_ref,
 )
 
-__all__ = ["fused_layer0", "l2dist", "l2dist_q", "l2topk", "l2topk_q",
-           "pq_adc", "pq_topk"]
+__all__ = ["flash_attention", "fused_layer0", "l2dist", "l2dist_q", "l2topk",
+           "l2topk_q", "pq_adc", "pq_topk", "topk"]
 
 
 def _pick(t, cuda_fn, plain_fn, what: str):
@@ -92,3 +97,20 @@ def l2topk_q(queries, xs, xsq=None, *, k: int = 10, out_scale: float = 1.0):
     otherwise."""
     fn = _pick(xs, l2topk_q_cuda, l2topk_q_ref, "l2topk_q")
     return fn(queries, xs, xsq, k=k, out_scale=out_scale)
+
+
+def topk(x, k: int):
+    """Per-row k smallest of x [B, N] (kernels/topk.py): (values [B, k]
+    float32 ascending, ids [B, k] int32); ties go to the lower column,
+    unfilled slots are (+inf, -1). The kernel takes k <= 64."""
+    return _pick(x, topk_cuda, topk_ref, "topk")(x, k)
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Softmax attention over flattened heads (kernels/attention.py): q
+    [BH, T, hd], k, v [BH, S, hd] float32 or bf16 -> [BH, T, hd] in q's
+    dtype; scores scaled by 1 / sqrt(hd), keys past t masked when
+    `causal`. The kernel takes hd <= 256."""
+    fn = _pick(q, flash_attention_cuda, flash_attention_ref,
+               "flash_attention")
+    return fn(q, k, v, causal=causal)

@@ -1,0 +1,270 @@
+"""The LM substrate's two kernels, `topk` and `flash_attention`: the
+port's plain versions against the reference's kernels, and the CUDA
+kernels against the plain versions.
+
+`repro_torch.kernels.ops.{topk, flash_attention}` on CPU tensors (the
+plain versions) are held to the reference's `repro.kernels.ops` functions,
+whose Pallas kernels run in interpret mode as `tests/test_kernels.py` runs
+them, at that file's shapes. Inputs are made by numpy from a seed.
+
+- `topk`: values and ids bitwise equal. Selection only compares and
+  copies, so nothing rounds. Ties go to the lower column in both.
+  Where fewer than k entries are finite, the reference's +inf slots carry
+  ids that depend on its block size (a 2,500-wide row whose only finite
+  entry is at column 5 gives ids [5, 5, 5, 5] at k = 4); the port's hold
+  -1 (pinned below; ROADMAP.md Queue 3).
+- `flash_attention`, float32: both sum `q . k` and `p @ v` in float32 in
+  other orders and over other key blocks (the reference's 256 x 256
+  tiles, the plain version's 256-key steps); the gate is the reference's
+  own against its naive oracle, |d| <= 2e-5 + 2e-5 |want|.
+- `flash_attention`, bf16: both compute in float32 and round once to
+  bf16, so they may land on neighbouring bf16 values: |d| <= 2^-7 x
+  max(|got|, |want|) (one bf16 spacing) + 1e-6.
+
+The CUDA kernels against the plain versions run only where there is a
+card (the `cuda` marker); here they skip. There `topk` is bitwise and
+`flash_attention` is held to 1e-5 + 1e-5 |want| in float32 (sums in
+another order) and to one bf16 spacing in bf16.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro_torch.kernels import attention, ops, topk
+
+# tiny CPU shapes: torch's thread pool costs more than the work itself
+torch.set_num_threads(1)
+
+BF16_SPACING = 2.0 ** -7
+
+
+def _gauss(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _ref_topk(x, k):
+    v, i = ref_ops.topk(jnp.asarray(x), k)
+    return np.asarray(v), np.asarray(i)
+
+
+def _port_topk(x, k):
+    v, i = ops.topk(torch.from_numpy(x), k)
+    return v.numpy(), i.numpy()
+
+
+# ---------------------------------------------------------------------------
+# topk
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,n,k", [
+    (4, 100, 5), (16, 3000, 10), (3, 1024, 32), (8, 4096, 1),
+])
+def test_topk_matches_reference_bitwise(b, n, k):
+    x = _gauss((b, n), seed=b * n + k)
+    wv, wi = _ref_topk(x, k)
+    gv, gi = _port_topk(x, k)
+    assert gi.dtype == np.int32 and gv.dtype == np.float32
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gv, wv)
+
+
+@pytest.mark.parametrize("b,n,k", [(5, 2100, 12), (8, 64, 6)])
+def test_topk_ties_go_to_the_lower_column(b, n, k):
+    """Integer values 0..7: every selected value is tied many times over,
+    within and across the reference's 1,024-column blocks."""
+    x = np.random.default_rng(n).integers(0, 8, size=(b, n)).astype(
+        np.float32)
+    wv, wi = _ref_topk(x, k)
+    gv, gi = _port_topk(x, k)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gv, wv)
+    order = np.lexsort((np.arange(n)[None].repeat(b, 0), x), axis=1)
+    np.testing.assert_array_equal(gi, order[:, :k])
+
+
+def test_topk_on_router_probabilities():
+    """The router's call: ops.topk(-softmax(logits), k) on [S, E] rows."""
+    logits = _gauss((48, 64), seed=3)
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    neg = -(p / p.sum(1, keepdims=True))
+    wv, wi = _ref_topk(neg, 6)
+    gv, gi = _port_topk(neg, 6)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gv, wv)
+
+
+def test_topk_tail_when_fewer_than_k_are_finite():
+    """One finite entry in a 2,500-wide row, and two in another."""
+    x = np.full((2, 2500), np.inf, np.float32)
+    x[0, 5] = 0.25
+    x[1, [7, 2048]] = [-1.0, 3.0]
+    wv, wi = _ref_topk(x, 4)
+    gv, gi = _port_topk(x, 4)
+    np.testing.assert_array_equal(gv, wv)          # values agree everywhere
+    np.testing.assert_array_equal(wi[0], [5, 5, 5, 5])
+    np.testing.assert_array_equal(gi[0], [5, -1, -1, -1])
+    np.testing.assert_array_equal(gi[1], [7, 2048, -1, -1])
+    np.testing.assert_array_equal(wi[1, :2], gi[1, :2])
+
+
+def test_topk_k_above_n_and_nan():
+    x = np.array([[2.0, np.nan, 1.0], [np.nan, np.nan, np.nan]], np.float32)
+    gv, gi = _port_topk(x, 5)
+    np.testing.assert_array_equal(gi, [[2, 0, -1, -1, -1], [-1] * 5])
+    np.testing.assert_array_equal(gv[0, :2], [1.0, 2.0])
+    assert np.isinf(gv[0, 2:]).all() and np.isinf(gv[1]).all()
+
+
+def test_topk_warps_per_row():
+    assert [topk.warps_per_row(n) for n in (1, 64, 2047, 2048, 4096, 8192,
+                                             10**6)] == [1, 1, 1, 2, 4, 8, 8]
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+
+def _qkv(bh, t, hd, seed, s=None):
+    s = t if s is None else s
+    return (_gauss((bh, t, hd), seed), _gauss((bh, s, hd), seed + 1),
+            _gauss((bh, s, hd), seed + 2))
+
+
+@pytest.mark.parametrize("bh,t,hd,causal", [
+    (4, 128, 64, True), (2, 100, 32, True), (3, 257, 128, False),
+    (1, 31, 16, False), (8, 300, 64, True),
+])
+def test_flash_attention_matches_reference_f32(bh, t, hd, causal):
+    q, k, v = _qkv(bh, t, hd, seed=t + hd)
+    want = np.asarray(ref_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal))
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (bh, t, hd)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bh,t,hd,causal", [(2, 64, 32, True),
+                                            (3, 300, 48, True),
+                                            (2, 70, 32, False)])
+def test_flash_attention_matches_reference_bf16(bh, t, hd, causal):
+    q, k, v = _qkv(bh, t, hd, seed=7 + t)
+    qj, kj, vj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(ref_ops.flash_attention(qj, kj, vj, causal=causal),
+                      np.float32)
+    qt, kt, vt = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16) for a in (qj, kj, vj))
+    got = ops.flash_attention(qt, kt, vt, causal=causal)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    tol = BF16_SPACING * np.maximum(np.abs(got), np.abs(want)) + 1e-6
+    assert (np.abs(got - want) <= tol).all()
+
+
+def test_flash_attention_plain_equals_naive_softmax():
+    """Against a one-shot softmax (no blocks) where S spans several of the
+    plain version's 256-key steps and the keys outnumber the queries."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 600, 24, seed=5, s=700))
+    for causal in (True, False):
+        s = torch.einsum("btd,bsd->bts", q, k) / np.sqrt(24)
+        if causal:
+            s = s.masked_fill(torch.ones(600, 700).triu(1).bool(),
+                              float("-inf"))
+        want = torch.einsum("bts,bsd->btd", s.softmax(-1), v)
+        got = attention.flash_attention_ref(q, k, v, causal=causal)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_cpu_tensors_take_the_plain_versions(monkeypatch):
+    def boom(*a, **kw):
+        raise AssertionError("a CUDA wrapper was called for CPU tensors")
+
+    monkeypatch.setattr(ops, "topk_cuda", boom)
+    monkeypatch.setattr(ops, "flash_attention_cuda", boom)
+    x = torch.from_numpy(_gauss((3, 40), 1))
+    ops.topk(x, 4)
+    ops.flash_attention(x[None], x[None], x[None])
+    with pytest.raises(ValueError, match="CUDA"):
+        topk.topk_cuda(x, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention.flash_attention_cuda(x[None], x[None], x[None])
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels against the plain versions (on the card only)
+# ---------------------------------------------------------------------------
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels build with nvcc there)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k", [
+    (1, 1, 1), (7, 33, 6), (16384, 64, 6), (9, 2047, 64), (10, 2048, 64),
+    (5, 5000, 10), (3, 9000, 33), (256, 100_000, 10),
+])
+def test_cuda_topk_matches_plain_bitwise(b, n, k):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    cases = {"gauss": torch.randn((b, n), generator=g, device=dev),
+             "ties": torch.randint(0, 5, (b, n), generator=g,
+                                   device=dev).float()}
+    pad = cases["gauss"].clone()
+    pad[:, ::3] = float("inf")
+    pad[0, :] = float("inf")
+    pad[-1, 1::7] = float("nan")
+    cases["inf and nan"] = pad
+    for what, x in cases.items():
+        got, want = topk.topk_cuda(x, k), topk.topk_ref(x, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), (what, b, n, k)
+        assert torch.equal(got[1], want[1]), (what, b, n, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,s,hd,causal", [
+    (3, 1, 1, 16, True), (2, 100, 100, 17, True), (3, 257, 257, 128, False),
+    (4, 130, 200, 48, False), (2, 200, 200, 48, True), (1, 64, 64, 256, True),
+    (5, 333, 333, 192, True), (2, 65, 129, 64, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(bh, t, s, hd, causal, dtype):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(t * hd + s)
+    q, k, v = (torch.randn((bh, n, hd), generator=g, device=dev).to(dtype)
+               for n in (t, s, s))
+    got = attention.flash_attention_cuda(q, k, v, causal=causal)
+    want = attention.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        tol = 1e-5 + 1e-5 * want.abs()
+    else:
+        tol = BF16_SPACING * torch.maximum(got.abs(), want.abs()) + 1e-6
+    assert bool(((got - want).abs() <= tol).all()), float(
+        (got - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_on_bad_operands():
+    dev = _cuda()
+    x = torch.randn((4, 100), device=dev)
+    with pytest.raises(ValueError, match="k="):
+        topk.topk_cuda(x, 65)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk.topk_cuda(x.T, 3)
+    q = torch.randn((2, 10, 300), device=dev)
+    with pytest.raises(ValueError, match="hd"):
+        attention.flash_attention_cuda(q, q, q)
+    q = torch.randn((2, 10, 32), device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        attention.flash_attention_cuda(q, q.bfloat16(), q)
