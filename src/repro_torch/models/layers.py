@@ -7,10 +7,9 @@ dtype and drawn from an explicit `torch.Generator` at the reference's
 scales. The apply functions are plain functions of (module, tensors).
 
 Attention comes in two execution paths here:
-  * blockwise (flash-style) attention for prefill: on a CUDA tensor the
-    hand-written kernel (`kernels.ops.flash_attention`), on a CPU tensor
-    the reference's blockwise online softmax written in torch (its plain
-    version);
+  * blockwise (flash-style) attention for prefill through
+    `kernels.ops.flash_attention`: the hand-written kernel on a CUDA
+    tensor, its plain version on a CPU tensor;
   * MLA (DeepSeek-V2) with the compressed (c_kv, k_rope) cache and the
     absorbed decode (w_uk / w_uv folded into the query and output
     projections), plain torch as the reference's is plain jnp.
@@ -126,87 +125,27 @@ def apply_rope(x, positions, theta: float = 1e4):
 # ---------------------------------------------------------------------------
 
 
-def _mask_block(row, col, *, causal, window, prefix_len, s_valid):
-    ok = col < s_valid
-    if causal:
-        cm = col[None, :] <= row[:, None]
-        if prefix_len is not None:
-            cm = cm | (col[None, :] < prefix_len)
-        ok = ok[None, :] & cm
-    else:
-        ok = ok[None, :].expand(row.shape[0], col.shape[0])
-    if window and window > 0:
-        ok = ok & (col[None, :] > row[:, None] - window)
-    return ok
-
-
 def blockwise_attn(q, k, v, *, causal: bool = True, window: int = 0,
-                   prefix_len=None, q_offset=0, block_q: int = 512,
-                   block_k: int = 1024, skip_masked_blocks: bool = False):
+                   prefix_len=None, q_offset=0):
     """Softmax attention of q [B, T, H, hd] over k, v [B, S, KV, hd] ->
-    [B, T, H, hd] in q's dtype.
-
-    On a CUDA tensor this launches the flash kernel over [B * H, T, hd]
-    (which skips key blocks wholly in the causal future whatever
-    `skip_masked_blocks` says); the kernel computes a causal or full mask
-    from position 0 with as many KV heads as heads (true of MLA), and any
-    other mask raises. On a CPU tensor it runs the reference's blockwise
-    online softmax with -inf guards."""
+    [B, T, H, hd] in q's dtype, through `ops.flash_attention` over
+    [B * H, T, hd]: the kernel on CUDA tensors, its plain version on CPU
+    tensors. Both compute a causal or full mask from position 0 with as
+    many KV heads as heads (true of MLA); windows, prefixes, offsets and
+    grouped heads raise on every device. The reference's `block_q`,
+    `block_k` and `skip_masked_blocks` change no result and are not
+    taken: the kernel fixes its own blocks and skips future ones."""
     B, T, H, hd = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    if q.device.type == "cuda":
-        if (window and window > 0) or prefix_len is not None or \
-                int(q_offset) != 0 or KV != H:
-            raise NotImplementedError(
-                "blockwise_attn on the card takes a causal or full mask from "
-                "position 0 with KV heads == heads; windows, prefixes, "
-                "offsets and grouped heads are queued in ROADMAP.md Queue 1")
-        heads = [t.transpose(1, 2).reshape(B * H, -1, hd).contiguous()
-                 for t in (q, k, v)]
-        out = ops.flash_attention(*heads, causal=causal)
-        return out.reshape(B, H, T, hd).transpose(1, 2)
-    G = H // KV
-    scale = 1.0 / math.sqrt(hd)
-    bq, bk = min(block_q, T), min(block_k, S)
-    Tp, Sp = -(-T // bq) * bq, -(-S // bk) * bk
-    qp = F.pad(q, (0, 0, 0, 0, 0, Tp - T))
-    kp = F.pad(k, (0, 0, 0, 0, 0, Sp - S))
-    vp = F.pad(v, (0, 0, 0, 0, 0, Sp - S))
-    qb = qp.reshape(B, Tp // bq, bq, KV, G, hd).permute(1, 0, 3, 4, 2, 5)
-    kb = kp.reshape(B, Sp // bk, bk, KV, hd).permute(1, 0, 3, 2, 4)
-    vb = vp.reshape(B, Sp // bk, bk, KV, hd).permute(1, 0, 3, 2, 4)
-    dev = q.device
-    inf = float("inf")
-    outs = []
-    for qi in range(Tp // bq):
-        qblk = qb[qi].float()                          # [B, KV, G, bq, hd]
-        row = q_offset + qi * bq + torch.arange(bq, device=dev)
-        m = torch.full((B, KV, G, bq), -inf, device=dev)
-        l = torch.zeros((B, KV, G, bq), device=dev)
-        acc = torch.zeros((B, KV, G, bq, hd), device=dev)
-        for kj in range(Sp // bk):
-            if skip_masked_blocks and causal and prefix_len is None and \
-                    not kj * bk <= int(row[-1]):
-                continue          # wholly in the causal future: adds nothing
-            col = kj * bk + torch.arange(bk, device=dev)
-            s = torch.einsum("bKgqh,bKkh->bKgqk", qblk,
-                             kb[kj].float()) * scale
-            ok = _mask_block(row, col, causal=causal, window=window,
-                             prefix_len=prefix_len, s_valid=S)
-            s = torch.where(ok, s, -inf)
-            m_new = torch.maximum(m, s.amax(-1))
-            # guard fully-masked rows (exp(-inf - -inf))
-            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-            p = torch.exp(s - m_safe[..., None])
-            corr = torch.exp(torch.where(torch.isfinite(m), m - m_safe, -inf))
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bKgqk,bKkh->bKgqh", p, vb[kj].float())
-            m = m_new
-        outs.append(acc / l.clamp_min(1e-20)[..., None])
-    out = torch.stack(outs)                            # [nq, B, KV, G, bq, hd]
-    out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, Tp, H, hd)[:, :T]
-    return out.to(q.dtype)
+    if (window and window > 0) or prefix_len is not None or \
+            int(q_offset) != 0 or k.shape[2] != H:
+        raise NotImplementedError(
+            "blockwise_attn takes a causal or full mask from position 0 with "
+            "KV heads == heads; windows, prefixes, offsets and grouped heads "
+            "are queued in ROADMAP.md Queue 1")
+    heads = [t.transpose(1, 2).reshape(B * H, -1, hd).contiguous()
+             for t in (q, k, v)]
+    out = ops.flash_attention(*heads, causal=causal)
+    return out.reshape(B, H, T, hd).transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -273,8 +212,7 @@ def _write_cache(buf, new, pos: int):
 
 
 def mla_apply(p, x, *, mode: str, cache=None, pos=0, mla: MLAConfig,
-              rope_theta: float = 1e4, block_q: int = 512,
-              block_k: int = 1024):
+              rope_theta: float = 1e4):
     """MLA attention of x [B, T, d] -> (y [B, T, d], cache). The cache
     {"c": [B, S, kv_lora], "kr": [B, S, qk_rope]} stores only the
     compressed latent and the shared rope key; it is written in place at
@@ -295,13 +233,14 @@ def mla_apply(p, x, *, mode: str, cache=None, pos=0, mla: MLAConfig,
     k_rope = apply_rope(k_rope, positions, rope_theta)
 
     if mode == "decode":
-        # absorbed path: q_eff = q_nope @ w_uk, scored against cached c_kv;
-        # keys past pos + 1 are masked, so only those are read
+        # absorbed path: q_eff = q_nope @ w_uk, scored against cached c_kv.
+        # The reference masks keys >= pos + 1 for every query row, also
+        # when T > 1, so only keys [0, pos] are read
         _write_cache(cache["c"], c_kv, pos)
         _write_cache(cache["kr"], k_rope[:, :, 0, :], pos)
         with torch.profiler.record_function("mla.decode_attention"):
-            c_all = cache["c"][:, :pos + T].float()
-            kr_all = cache["kr"][:, :pos + T].float()
+            c_all = cache["c"][:, :pos + 1].float()
+            kr_all = cache["kr"][:, :pos + 1].float()
             q_eff = torch.einsum("bthn,lhn->bthl", q_nope, p["w_uk"])
             s = (torch.einsum("bthl,bsl->bhts", q_eff.float(), c_all)
                  + torch.einsum("bthr,bsr->bhts", q_rope.float(), kr_all)
@@ -320,8 +259,8 @@ def mla_apply(p, x, *, mode: str, cache=None, pos=0, mla: MLAConfig,
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     vd = mla.v_dim
     v_pad = F.pad(v, (0, scale_dim - vd))
-    out = blockwise_attn(q_full, k_full, v_pad, causal=True, q_offset=pos,
-                         block_q=block_q, block_k=block_k)[..., :vd]
+    out = blockwise_attn(q_full, k_full, v_pad, causal=True,
+                         q_offset=pos)[..., :vd]
     y = torch.einsum("bthv,hvd->btd", out, p["wo"])
     if mode == "prefill" and cache is not None:
         _write_cache(cache["c"], c_kv, pos)

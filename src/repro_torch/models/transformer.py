@@ -65,8 +65,8 @@ class ModelConfig:
     param_dtype: Any = torch.float32
     remat: bool = True
     loss_chunk: int = 512
-    block_q: int = 512
-    block_k: int = 1024
+    block_q: int = 512        # the reference's attention blocks; the
+    block_k: int = 1024       # port's flash kernel fixes its own
     family: str = "dense"     # dense | moe | ssm | vlm | audio | hybrid
     sub_quadratic: bool = False
     grad_accum: int = 1       # microbatches per step (activation memory / N)
@@ -135,7 +135,7 @@ def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, *, mode, cache,
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     h, new_cache = L.mla_apply(
         p["attn"], h, mode=mode, cache=cache, pos=pos, mla=cfg.mla,
-        rope_theta=cfg.rope_theta, block_q=cfg.block_q, block_k=cfg.block_k)
+        rope_theta=cfg.rope_theta)
     x = x + h
     if "ffn" in p:
         x = x + L.mlp_apply(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),

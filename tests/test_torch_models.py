@@ -7,7 +7,7 @@ Tolerances, all float32:
 - rms_norm, apply_rope: 1e-6 (elementwise; cos / sin and rsqrt of two
   libraries differ in the last bit).
 - blockwise_attn, mla_apply, moe_apply: 1e-5 (einsums summed in other
-  orders; the same blocks and the same online softmax).
+  orders; the same online softmax over other key blocks).
 - the whole REDUCED model through `params_from_reference`: logits and
   caches after `prefill_step` and three `decode_step`s within 2e-3, the
   reference's own tolerance for prefill / decode logits
@@ -134,19 +134,27 @@ def test_apply_rope_matches_reference(batched_pos):
 ])
 @pytest.mark.parametrize("kv", [4, 2])
 def test_blockwise_attn_matches_reference(kw, kv):
+    """Causal and full masks from position 0 with KV == H (MLA's) match the
+    reference, whose block sizes and block skipping change no result;
+    windows, prefixes, offsets and grouped heads raise (ROADMAP.md)."""
     q, k, v = _np((2, 37, 4, 16), 5), _np((2, 37, kv, 16), 6), \
         _np((2, 37, kv, 16), 7)
-    got = L.blockwise_attn(_t(q), _t(k), _t(v), block_q=16, block_k=8, **kw)
+    port_kw = {n: x for n, x in kw.items() if n != "skip_masked_blocks"}
+    if kv != 4 or set(port_kw) - {"causal"}:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            L.blockwise_attn(_t(q), _t(k), _t(v), **port_kw)
+        return
+    got = L.blockwise_attn(_t(q), _t(k), _t(v), **port_kw)
     want = RL.blockwise_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                              block_q=16, block_k=8, **kw)
     _close(got, want, 1e-5)
 
 
 def test_blockwise_attn_equals_the_flash_plain_version():
-    """The model's plain attention and the kernel's plain version (which
-    the card path launches through) compute one function."""
+    """The model's attention is the kernel's plain version over flattened
+    heads on the CPU (the card path launches the kernel there)."""
     q, k, v = (_t(_np((2, 50, 3, 24), s)) for s in (8, 9, 10))
-    got = L.blockwise_attn(q, k, v, block_q=16, block_k=32)
+    got = L.blockwise_attn(q, k, v)
     flat = [t.transpose(1, 2).reshape(6, 50, 24) for t in (q, k, v)]
     want = port_attention.flash_attention_ref(*flat).reshape(
         2, 3, 50, 24).transpose(1, 2)
@@ -172,7 +180,7 @@ def test_mla_prefill_then_decode_match_reference():
     ry, rc = RL.mla_apply(ref, jnp.asarray(x[:, :Tn]), mode="prefill",
                           cache=rc, pos=0, mla=rmla, block_q=8, block_k=4)
     py, pc = L.mla_apply(port, _t(x[:, :Tn]), mode="prefill", cache=pc,
-                         pos=0, mla=mla, block_q=8, block_k=4)
+                         pos=0, mla=mla)
     _close(py, ry, 1e-5)
     for key in ("c", "kr"):
         _close(pc[key], rc[key], 1e-5)
@@ -183,6 +191,28 @@ def test_mla_prefill_then_decode_match_reference():
                              cache=pc, pos=t, mla=mla)
         _close(py, ry, 1e-5)
         _close(pc["c"], rc["c"], 1e-5)
+
+
+def test_mla_multi_token_decode_masks_as_the_reference():
+    """A decode of T > 1 tokens at pos: every query row sees keys [0, pos]
+    only, as the reference masks them (s_valid = pos + 1)."""
+    mla, ref, port = _mla_pair()
+    rmla = RL.MLAConfig(**dataclasses.asdict(mla))
+    B, Tn, S = 2, 9, 16
+    x = _np((B, Tn + 3, 64), 13)
+    rc = RL.mla_cache_init(B, S, rmla)
+    pc = L.mla_cache_init(B, S, mla)
+    _, rc = RL.mla_apply(ref, jnp.asarray(x[:, :Tn]), mode="prefill",
+                         cache=rc, pos=0, mla=rmla)
+    _, pc = L.mla_apply(port, _t(x[:, :Tn]), mode="prefill", cache=pc,
+                        pos=0, mla=mla)
+    ry, rc = RL.mla_apply(ref, jnp.asarray(x[:, Tn:]), mode="decode",
+                          cache=rc, pos=jnp.int32(Tn), mla=rmla)
+    py, pc = L.mla_apply(port, _t(x[:, Tn:]), mode="decode", cache=pc,
+                         pos=Tn, mla=mla)
+    _close(py, ry, 1e-5)
+    for key in ("c", "kr"):
+        _close(pc[key], rc[key], 1e-5)
 
 
 def test_mla_cache_overrun_raises():
