@@ -90,9 +90,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                counters reset just before and read just after. Checks: (a)
                the topk kernel bitwise equal to its plain version on the
                router's own [16,384, 64] rows (k=6) and at [256, 1M] (k=10)
-               with ties and +inf; (b) the flash kernel within FLASH_TOL of
-               its plain version at [128, 2048, 192] bf16 causal and at
-               unaligned float32 shapes, causal and full; (c) prefill(256)
+               with ties and +inf; (b) the flash kernels within FLASH_TOL
+               of their plain version: the bf16 tensor-core kernel at
+               [128, 2048, 192] causal and at ragged bf16 shapes (T and S
+               not multiples of 64 or 128, S != T without the mask, hd =
+               24 and 256, T = 1), the FP32-FMA kernel at bf16 hd = 100
+               and at unaligned float32 shapes, causal and full, each case
+               on the kernel the wrapper picks for it; (c) prefill(256)
                then decode(256..258) against a prefill over 259 tokens
                (B=2) and (d) the same prefill with ops.topk /
                ops.flash_attention swapped for their plain versions, both
@@ -102,12 +106,15 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                from scripts/torch_lm_gates.py); then (c) and (d) again in
                float32 at full width, depth 1 + 2, within the reference's
                2e-3 with every greedy token equal; (e) 26 topk and 27
-               flash launches a prefill, 26 topk a decode step. Prints
+               tensor-core flash launches a prefill (0 of the FMA
+               kernel), 26 topk a decode step. Prints
                prefill ms and tokens/s, decode p50 / p99 ms a step and
                tokens/s, peak memory, a torch.profiler split of one
                prefill and one decode step, and each kernel beside its
                plain version, a library call (torch.topk,
-               scaled_dot_product_attention; timed only) and its bound.
+               scaled_dot_product_attention; timed only) and its bound,
+               the FMA flash kernel at the path's shape beside the
+               tensor-core one.
 
 Each serving path prints QPS and p50/p99 per 256-query batch. The line
 before the last is {"kernels": [...]} with each kernel's launches on its
@@ -1135,8 +1142,8 @@ def profile_split(fn) -> dict:
             and e.name not in ranges]
     ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3  # noqa: E731
     out = {"wall_ms": wall, "device_ms": ms(kern),
-           "attention_ms": ms(e for e in kern
-                              if "flash_attention_kernel" in e.name),
+           "attention_ms": ms(e for e in kern   # either flash kernel
+                              if "flash_attention" in e.name),
            "router_ms": ms(e for e in kern if "select_k_kernel" in e.name)}
     for name in ranges:
         out[name] = sum(e.device_time_total for e in events
@@ -1213,38 +1220,57 @@ def lm_topk_checks(router_neg, g) -> float:
     return worst
 
 
-def lm_flash_checks(path_shape, g) -> float:
-    """(b) the flash kernel within FLASH_TOL of its plain version: at MLA
-    prefill's [B*H, T, qk_nope + qk_rope] bf16 causal, and at unaligned
-    float32 shapes, causal and full. Returns the largest |kernel - plain|
-    at the path's shape."""
+def lm_flash_checks(path_shape, g) -> dict:
+    """(b) the flash kernels within FLASH_TOL of their plain version, each
+    case on the kernel `flash_attention_cuda` picks for it: the tensor-core
+    kernel at MLA prefill's [B*H, T, qk_nope + qk_rope] bf16 causal and at
+    ragged bf16 shapes (T and S not multiples of the 64-key tile or the
+    128-row block, S != T without the mask, hd = 24 and 256, T = 1); the
+    FP32-FMA kernel at bf16 hd = 100 (not a multiple of 8) and at
+    unaligned float32 shapes, causal and full. Returns the largest
+    |kernel - plain| of each: the tensor-core kernel's at the path's
+    shape, the FMA kernel's over its cases."""
     from repro_torch.kernels import attention
 
     bh, t, hd = path_shape
-    cases = [((bh, t, t, hd), torch.bfloat16, True),
-             ((6, 1000, 1000, 100), torch.float32, True),
-             ((6, 1000, 777, 100), torch.float32, False),
-             ((5, 333, 333, 192), torch.float32, True),
-             ((3, 129, 200, 17), torch.float32, False)]
-    path_err = 0.0
-    for (bh, t, s, hd), dtype, causal in cases:
-        q, k, v = (torch.randn((bh, n, hd), generator=g, device=DEVICE).to(
-            dtype) for n in (t, s, s))
+    bf = torch.bfloat16
+    cases = [((bh, t, t, hd), bf, True, "tc"),
+             ((6, 1000, 1000, 192), bf, True, "tc"),
+             ((6, 777, 1000, 192), bf, False, "tc"),
+             ((6, 333, 200, 24), bf, True, "tc"),
+             ((4, 300, 300, 256), bf, True, "tc"),
+             ((16, 1, 1, 192), bf, True, "tc"),
+             ((16, 1, 500, 192), bf, False, "tc"),
+             ((4, 500, 500, 100), bf, True, "fma"),
+             ((6, 1000, 1000, 100), torch.float32, True, "fma"),
+             ((6, 1000, 777, 100), torch.float32, False, "fma"),
+             ((5, 333, 333, 192), torch.float32, True, "fma"),
+             ((3, 129, 200, 17), torch.float32, False, "fma")]
+    err = {"tc": 0.0, "fma": 0.0}
+    for n, ((bh, t, s, hd), dtype, causal, kernel) in enumerate(cases):
+        q, k, v = (torch.randn((bh, m, hd), generator=g, device=DEVICE).to(
+            dtype) for m in (t, s, s))
+        before = attention.TC_LAUNCHES, attention.FMA_LAUNCHES
         got = attention.flash_attention_cuda(q, k, v, causal=causal).float()
+        took = "tc" if attention.TC_LAUNCHES > before[0] else "fma"
+        check(took == kernel and attention.FMA_LAUNCHES - before[1]
+              + attention.TC_LAUNCHES - before[0] == 1,
+              f"flash_attention at {[bh, t, s, hd]} {dtype} took the {took} "
+              f"kernel, expected {kernel}")
         want = attention.flash_attention_ref(q, k, v, causal=causal).float()
         rel, absol = FLASH_TOL[dtype]
         tol = rel * torch.maximum(got.abs(), want.abs()) + absol
-        err = float((got - want).abs().max())
+        d = float((got - want).abs().max())
         check(bool(((got - want).abs() <= tol).all()),
-              f"flash_attention kernel beyond the tolerance at "
-              f"{[bh, t, s, hd]} {dtype} causal={causal}: max {err}")
-        if (bh, t, s, hd) == cases[0][0]:
-            path_err = err
-        log(f"[lm] (b) flash_attention [{bh}, {t}, {hd}] x S={s} {dtype}, "
-            f"causal={causal}: within {rel:g} x |out| + {absol:g} of its "
-            f"plain version (max |d| {err:.3g})")
+              f"flash_attention {kernel} kernel beyond the tolerance at "
+              f"{[bh, t, s, hd]} {dtype} causal={causal}: max {d}")
+        if n == 0 or kernel == "fma":
+            err[kernel] = max(err[kernel], d)
+        log(f"[lm] (b) flash_attention, {kernel} kernel, [{bh}, {t}, {hd}] "
+            f"x S={s} {dtype}, causal={causal}: within {rel:g} x |out| + "
+            f"{absol:g} of its plain version (max |d| {d:.3g})")
         del q, k, v, got, want, tol
-    return path_err
+    return err
 
 
 def lm_timing(router_neg, path_shape, g, reps: int = 5) -> dict:
@@ -1283,12 +1309,15 @@ def lm_timing(router_neg, path_shape, g, reps: int = 5) -> dict:
     q, k, v = (torch.randn((bh, T, hd), generator=g, device=DEVICE).to(
         torch.bfloat16) for _ in range(3))
     q4, k4, v4 = (x.view(LM_B, bh // LM_B, T, hd) for x in (q, k, v))
-    t = {"ms": median_ms(lambda: attention.flash_attention_cuda(q, k, v),
+    t = {"ms": median_ms(lambda: attention.flash_attention_tc_cuda(q, k, v),
                          reps),
          "plain_ms": median_ms(lambda: attention.flash_attention_ref(q, k, v),
                                reps),
          "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
              q4, k4, v4, is_causal=True), reps)}
+    # the FP32-FMA kernel on the same inputs (it takes the other shapes)
+    fma = dict(t, ms=median_ms(
+        lambda: attention.flash_attention_fma_cuda(q, k, v), reps))
     # q.k^T and P.V over the causal pairs, 2 hd operations a pair each.
     # The bound prices both at the bf16 tensor cores: products of bf16
     # inputs are exact in a float32 accumulator, and P, which the function
@@ -1297,10 +1326,11 @@ def lm_timing(router_neg, path_shape, g, reps: int = 5) -> dict:
     qk = pv = 2.0 * bh * hd * T * (T + 1) / 2
     nbytes = 4 * bh * T * hd * 2
     t["bound_ms"], t["bound_by"] = bound(nbytes, qk + 3 * pv, BF16_FLOPS)
-    out["flash_attention"] = t
+    fma["bound_ms"], fma["bound_by"] = t["bound_ms"], t["bound_by"]
+    out["flash_attention"], out["flash_attention_fma"] = t, fma
     log(f"[lm] timing flash_attention [{bh}, {T}, {hd}] bf16 causal (one MLA "
-        f"prefill layer): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-        f"ms, library (scaled_dot_product_attention) {t['library_ms']:.4f} ms, "
+        f"prefill layer): tensor-core kernel {t['ms']:.4f} ms, FP32-FMA "
+        f"kernel {fma['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library (scaled_dot_product_attention) {t['library_ms']:.4f} ms, "
         f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {qk / 1e9:.1f} "
         f"GFLOP q.k^T + 3 x {pv / 1e9:.1f} GFLOP P.V at the bf16 tensor "
         f"cores' 989 TFLOP/s; {(qk + pv) / FP32_FLOPS * 1e3:.4f} ms for "
@@ -1499,12 +1529,13 @@ def lm_phase(seed: int) -> dict:
 
     # the main path: prefill, then greedy decode steps, counters around it
     torch.cuda.reset_peak_memory_stats()
-    topk.LAUNCHES = attention.LAUNCHES = 0
+    topk.LAUNCHES = attention.TC_LAUNCHES = attention.FMA_LAUNCHES = 0
     t0 = time.perf_counter()
     logits, cache = prefill_step(model, {"inputs": prompts}, cache, cfg)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    per_prefill = (topk.LAUNCHES, attention.LAUNCHES)
+    per_prefill = (topk.LAUNCHES, attention.TC_LAUNCHES,
+                   attention.FMA_LAUNCHES)
     tok = logits[:, -1, :V].argmax(-1)[:, None]
     first_tok = tok.clone()
     steps, gen = [], [tok]
@@ -1516,14 +1547,17 @@ def lm_phase(seed: int) -> dict:
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0) * 1e3)
         gen.append(tok)
-    launches = {"topk": topk.LAUNCHES, "flash_attention": attention.LAUNCHES}
+    launches = {"topk": topk.LAUNCHES, "flash_attention":
+                attention.TC_LAUNCHES, "flash_attention_fma":
+                attention.FMA_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
-    # (e) the path went through both kernels, once a layer
-    check(per_prefill == (n_moe, n_attn),
-          f"(e) a prefill launched (topk, flash) {per_prefill}, expected "
-          f"({n_moe}, {n_attn})")
+    # (e) the path went through both kernels, once a layer, and every
+    # flash launch through the tensor-core kernel
+    check(per_prefill == (n_moe, n_attn, 0),
+          f"(e) a prefill launched (topk, flash tensor-core, flash FMA) "
+          f"{per_prefill}, expected ({n_moe}, {n_attn}, 0)")
     check(launches == {"topk": n_moe * (1 + LM_STEPS),
-                       "flash_attention": n_attn},
+                       "flash_attention": n_attn, "flash_attention_fma": 0},
           f"(e) launches over prefill and {LM_STEPS} decode steps {launches}")
     gen = torch.cat(gen, 1)
     check(logits.shape == (LM_B, 1, cfg.padded_vocab)
@@ -1534,7 +1568,8 @@ def lm_phase(seed: int) -> dict:
     st = np.array(steps)
     log(f"[lm] prefill {LM_B} x {LM_T} tokens: {prefill_ms:.2f} ms "
         f"({LM_B * LM_T / prefill_ms * 1e3:.1f} tokens/s); launches "
-        f"topk {per_prefill[0]}, flash_attention {per_prefill[1]}")
+        f"topk {per_prefill[0]}, flash_attention {per_prefill[1]} "
+        f"(tensor cores; FP32-FMA kernel {per_prefill[2]})")
     log(f"[lm] decode {LM_STEPS} greedy steps of {LM_B} at positions "
         f"{LM_T}..{LM_T + LM_STEPS - 1} (cache {LM_S}): p50 "
         f"{np.percentile(st, 50):.3f} ms, p99 {np.percentile(st, 99):.3f} ms "
@@ -1579,8 +1614,12 @@ def lm_phase(seed: int) -> dict:
     return {"topk": {"launches": launches["topk"], "err": err_topk,
                      "timing": timing["topk"]},
             "flash_attention": {"launches": launches["flash_attention"],
-                                "err": err_flash,
-                                "timing": timing["flash_attention"]}}
+                                "err": err_flash["tc"],
+                                "timing": timing["flash_attention"]},
+            "flash_attention_fma": {
+                "launches": launches["flash_attention_fma"],
+                "err": err_flash["fma"],
+                "timing": timing["flash_attention_fma"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -1722,7 +1761,9 @@ def main(argv=None) -> int:
                                t, t["bound_by"] if t else "operations"))
     for name, source, replaces, bound_by in (
             ("topk", "select_k.cu", "src/repro/kernels/topk.py:78", "bytes"),
-            ("flash_attention", "flash_attention.cu",
+            ("flash_attention", "flash_attention_tc.cu",
+             "src/repro/kernels/attention.py:79", "operations"),
+            ("flash_attention_fma", "flash_attention.cu",
              "src/repro/kernels/attention.py:79", "operations")):
         r = lm[name] if lm else None
         t = r and r["timing"]

@@ -33,10 +33,10 @@
 // What bounds it on this card: the operations, 4 * BH * hd * (the
 // (query, key) pairs visited; T^2 / 2 under a causal mask) on the CUDA
 // cores at 67 TFLOP/s FP32; at MLA prefill's [128, 2048, 192] that is
-// 206 GFLOP, 3.1 ms (0.21 ms at the 989 TFLOP/s of the bf16 tensor
-// cores), against 302 MB of q, k, v and out (0.09 ms). This kernel feeds
-// FP32 FMAs from shared memory; mma.sync / wgmma on bf16 with
-// float32 sums, and TMA staging, are later work.
+// 206 GFLOP, 3.1 ms, against 302 MB of q, k, v and out (0.09 ms). This
+// kernel feeds FP32 FMAs from shared memory. It takes float32, and the
+// bf16 shapes csrc/flash_attention_tc.cu (wgmma and TMA, which the model's
+// path takes) refuses: hd not a multiple of 8, or an unaligned base.
 
 #include <cstdint>
 

@@ -110,7 +110,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
     """Softmax attention over flattened heads (kernels/attention.py): q
     [BH, T, hd], k, v [BH, S, hd] float32 or bf16 -> [BH, T, hd] in q's
     dtype; scores scaled by 1 / sqrt(hd), keys past t masked when
-    `causal`. The kernel takes hd <= 256."""
+    `causal`. The kernels take hd <= 256: bf16 with hd % 8 == 0 runs on
+    the tensor cores, the rest on FP32 FMAs (`takes_tensor_cores`)."""
     fn = _pick(q, flash_attention_cuda, flash_attention_ref,
                "flash_attention")
     return fn(q, k, v, causal=causal)

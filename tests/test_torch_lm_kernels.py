@@ -24,7 +24,11 @@ them, at that file's shapes. Inputs are made by numpy from a seed.
 The CUDA kernels against the plain versions run only where there is a
 card (the `cuda` marker); here they skip. There `topk` is bitwise and
 `flash_attention` is held to 1e-5 + 1e-5 |want| in float32 (sums in
-another order) and to one bf16 spacing in bf16.
+another order) and to one bf16 spacing in bf16. bf16 with hd a multiple
+of 8 goes to the tensor-core kernel, the rest to the FP32-FMA kernel;
+which shapes go where is checked here (`takes_tensor_cores`), and the
+tensor-core kernel's premise for P.V too: a float32 P in [0, 1] is the
+exact sum of three bf16 pieces.
 """
 
 import jax.numpy as jnp
@@ -180,6 +184,55 @@ def test_flash_attention_plain_equals_naive_softmax():
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+def _split3(p):
+    """The tensor-core kernel's split of a float32 P (`split3` in
+    csrc/flash_attention_tc.cu): p1 = bf16(P), p2 = bf16(P - p1),
+    p3 = bf16(P - p1 - p2), each subtraction in float32."""
+    p1 = p.to(torch.bfloat16)
+    r = p - p1.float()
+    p2 = r.to(torch.bfloat16)
+    return p1, p2, (r - p2.float()).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (1e-30, 1e-20), (1e-12, 1e-3)])
+def test_three_bf16_pieces_sum_back_to_p_exactly(lo, hi):
+    """P.V as three bf16 products is P.V in float32 only if p1 + p2 + p3
+    is P itself: 8 significant bits a piece cover float32's 24, and each
+    residue is exact in float32. Checked on random values, log-uniform in
+    [lo, hi], and on 0, 1, the largest float32 below 1 and 1e-30."""
+    rng = np.random.default_rng(int(-np.log10(hi + 1e-40) * 10))
+    x = np.exp(rng.uniform(np.log(max(lo, 1e-30)), np.log(hi), 200_000))
+    edge = np.array([0.0, 1.0, np.nextafter(np.float32(1), np.float32(0)),
+                     1e-30], np.float32)
+    p = torch.from_numpy(np.concatenate([x.astype(np.float32), edge]))
+    p1, p2, p3 = _split3(p)
+    total = p1.double() + p2.double() + p3.double()
+    assert torch.equal(total, p.double())
+    # summed in float32 in the order the accumulator takes them, too
+    assert torch.equal(p1.float() + p2.float() + p3.float(), p)
+    assert bool((p1.float() <= 1).all())
+
+
+def test_tensor_core_kernel_takes_bf16_with_hd_a_multiple_of_8():
+    def qkv(dtype, hd, offset=0):
+        flat = torch.zeros(3 * 5 * hd + offset, dtype=dtype)[offset:]
+        return flat.view(3, 5, hd)
+
+    for hd in (8, 24, 40, 128, 192, 256):
+        x = qkv(torch.bfloat16, hd)
+        assert attention.takes_tensor_cores(x, x, x), hd
+    for hd in (1, 17, 100, 252):
+        x = qkv(torch.bfloat16, hd)
+        assert not attention.takes_tensor_cores(x, x, x), hd
+    x = qkv(torch.float32, 192)
+    assert not attention.takes_tensor_cores(x, x, x)
+    # a base 2 bytes past a 16-byte boundary: TMA cannot address it
+    y = qkv(torch.bfloat16, 192, offset=1)
+    x = qkv(torch.bfloat16, 192)
+    assert x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 2
+    assert not attention.takes_tensor_cores(x, y, x)
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     def boom(*a, **kw):
         raise AssertionError("a CUDA wrapper was called for CPU tensors")
@@ -234,6 +287,10 @@ def test_cuda_topk_matches_plain_bitwise(b, n, k):
     (3, 1, 1, 16, True), (2, 100, 100, 17, True), (3, 257, 257, 128, False),
     (4, 130, 200, 48, False), (2, 200, 200, 48, True), (1, 64, 64, 256, True),
     (5, 333, 333, 192, True), (2, 65, 129, 64, True),
+    # the tensor-core kernel's edges in bf16: one 64-column box part
+    # filled, ragged S past the last key tile, a full model-sized head
+    (3, 130, 130, 24, True), (2, 77, 300, 40, False), (2, 300, 300, 256, True),
+    (3, 777, 1000, 192, False), (2, 2048, 2048, 192, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_matches_plain(bh, t, s, hd, causal, dtype):
@@ -252,6 +309,25 @@ def test_cuda_flash_attention_matches_plain(bh, t, s, hd, causal, dtype):
         tol = BF16_SPACING * torch.maximum(got.abs(), want.abs()) + 1e-6
     assert bool(((got - want).abs() <= tol).all()), float(
         (got - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_picks_the_kernel_by_shape():
+    """MLA prefill's heads ([B*16, 2048, 192] bf16) go to the tensor-core
+    kernel; float32 and hd = 100 in bf16 to the FP32-FMA kernel."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    for (bh, t, hd), dtype, kernel in (
+            ((2, 2048, 192), torch.bfloat16, "tc"),
+            ((2, 300, 100), torch.bfloat16, "fma"),
+            ((2, 300, 192), torch.float32, "fma")):
+        q = torch.randn((bh, t, hd), generator=g, device=dev).to(dtype)
+        before = attention.TC_LAUNCHES, attention.FMA_LAUNCHES
+        attention.flash_attention_cuda(q, q, q)
+        torch.cuda.synchronize()
+        after = attention.TC_LAUNCHES, attention.FMA_LAUNCHES
+        assert (after[0] - before[0], after[1] - before[1]) == (
+            (1, 0) if kernel == "tc" else (0, 1)), (bh, t, hd, dtype)
 
 
 @pytest.mark.cuda

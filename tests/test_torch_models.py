@@ -439,9 +439,9 @@ def _cuda():
 def test_cuda_blockwise_attn_launches_the_kernel():
     dev = _cuda()
     q, k, v = (_t(_np((2, 70, 3, 48), s)) for s in (1, 2, 3))
-    before = port_attention.LAUNCHES
+    before = port_attention.FMA_LAUNCHES       # float32: the FMA kernel
     got = L.blockwise_attn(q.to(dev), k.to(dev), v.to(dev))
-    assert port_attention.LAUNCHES == before + 1
+    assert port_attention.FMA_LAUNCHES == before + 1
     _close(got.cpu(), L.blockwise_attn(q, k, v), 1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         L.blockwise_attn(q.to(dev), k.to(dev), v.to(dev), window=8)
