@@ -30,11 +30,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                ef_construction=100, fused_hops=4) over 32,768
                integer-valued 128-d vectors on the card, then `serve_loop`
                over 8 batches of 256 queries (k=10, ef=40) with rerank off
-               and on, the traversal launch counter reset just before and
-               read just after. Checks: recall@10 >= 0.95 against the exact
-               backend on the card, launches > 0, fused_hops=1 bitwise
-               equal to fused_hops=4, and a CPU copy (saved, then loaded
-               with device="cpu") bitwise equal to the card on one batch.
+               and on, each after one untimed batch (the timed loop starts
+               on a warm service), the traversal launch counter reset just
+               before and read just after. Checks: recall@10 >= 0.95
+               against the exact backend on the card, launches > 0,
+               fused_hops=1 bitwise equal to fused_hops=4, and a CPU copy
+               (saved, then loaded with device="cpu") bitwise equal to the
+               card on one batch.
   5. timing  — the traversal kernel and its plain version at the main
                path's shapes, replayed from the beam states of one
                main-path batch; the bound is the bytes those supersteps
@@ -59,26 +61,35 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                traversal and the PQ kernels are timed at these paths'
                shapes against their plain versions and bounds.
 
-  7. scan    — the exact-scan kernels (l2dist, l2topk, l2dist_q,
-               l2topk_q) through the public `kernels.ops` API, last: SIFT1M's
-               size, 1,000,000 integer-valued 128-d float32 rows (the main
-               paths' data distribution), their uint8 codes (scale 1.0: the
-               bytes themselves) and int8 codes (scale 255/127), 2,048
-               queries in batches of 256, k=10. Every batch goes through
-               ops.l2topk, ops.l2topk_q on both code tables, ops.l2dist and
-               ops.l2dist_q, the four launch counters reset just before and
-               read just after. Checks: l2topk ids and dists bitwise equal to
-               core/bruteforce.py's bruteforce_topk on every batch; uint8
-               l2topk_q equal to l2topk; int8 l2topk_q (out_scale =
-               (255/127)^2) bitwise equal to its plain version; l2dist /
-               l2dist_q at the top-k ids equal the top-k dists. Then each
-               kernel against its plain version at 256 x 1M, with and without
-               16 xsq=+inf pad rows: bitwise on the integer rows and codes
-               (l2dist on l2 and ip), within SCAN_TOL on unit-norm rows
-               (cosine) and Gaussian rows; and each timed (median of 5)
+  7. scan    — the exact-scan kernels through the public `kernels.ops` API,
+               SIFT1M's size: 1,000,000 integer-valued 128-d float32 rows
+               (the main paths' data distribution), their uint8 codes
+               (scale 1.0: the bytes themselves) and int8 codes (scale
+               255/127), 2,048 queries (codes for the 8-bit tables) in
+               batches of 256, k=10. Every batch goes through ops.l2topk,
+               ops.l2topk_q on both code tables, ops.l2dist and
+               ops.l2dist_q, the launch counters reset just before and read
+               just after: l2dist and l2topk_q must launch their
+               tensor-core kernels (l2dist_tc.cu, l2topk_q_tc.cu) and
+               their FMA routes never. Checks: l2topk ids and dists
+               bitwise equal to core/bruteforce.py's bruteforce_topk on
+               every batch; uint8 l2topk_q equal to l2topk; int8 l2topk_q
+               (out_scale = (255/127)^2) bitwise equal to its plain
+               version; l2dist / l2dist_q at the top-k ids equal the top-k
+               dists. Then every kernel, both routes of l2dist and
+               l2topk_q, against its plain version at 256 x 1M, with and
+               without 16 xsq=+inf pad rows: bitwise on the integer rows
+               and codes (l2dist on l2, ip and cosine; l2topk_q at k = 1,
+               10 and 64, the FMA route given code-valued float32
+               queries), within SCAN_TOL on unit-norm rows (cosine) and
+               Gaussian rows (l2, ip); ragged shapes (Bq = 3, Bx = 70,000,
+               D = 128 / 48 on the tensor cores; D = 200 and Bx = 70,001 on
+               the FMA kernels) through the dispatching wrappers, each on
+               the counter its route names; and each timed (median of 5)
                beside its plain version, a library yardstick (torch.addmm,
                then torch.topk for the fused scans; timed only) and its
-               bound.
+               bound, the two routes of l2dist and l2topk_q on the same
+               inputs.
   8. lm      — the LM substrate, last, after torch.cuda.empty_cache():
                deepseek-v2-lite-16b at full width and depth (27 layers, d
                2048, 16 MLA heads, 64 experts top-6, vocab 102,400; 15.7 B
@@ -142,6 +153,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM dense TF32 tensor cores
 INT8_OPS = 1979e12               # H100 SXM dense int8 tensor cores
 # shared-memory lookups a second: 32 banks a clock on each of 132 SMs at
 # the 1.98 GHz boost clock (Hopper white paper); a floor for the PQ kernels
@@ -460,13 +472,19 @@ def answer(svc, q, h=None, rerank=False):
 
 
 def serve_paths(svc, queries, gt, what: str, gate: dict) -> dict:
-    """serve_loop rerank off and on with recall@10 against `gt`; `gate`
-    maps rerank -> the least recall, if any. Returns ids per rerank."""
+    """serve_loop rerank off and on, each after one untimed batch, with
+    recall@10 against `gt`; `gate` maps rerank -> the least recall, if
+    any. Returns ids per rerank."""
     from repro_torch.launch.serve import serve_loop
+
+    from repro_torch.api import SearchRequest
 
     n_batches = len(queries) // BATCH
     ids_by = {}
     for rerank in (False, True):
+        # one untimed batch first: the timed loop starts on a warm service
+        svc.search(SearchRequest(queries[:BATCH], k=10, ef=40,
+                                 rerank=rerank)).ids.cpu()
         ids, st = serve_loop(svc, queries, BATCH, 10, 40, rerank=rerank,
                              log=lambda m: log(f"[{what}] rerank={rerank} {m}"))
         rec = recall_at(ids, gt)
@@ -526,8 +544,9 @@ def main_phase(svc, data, queries) -> dict:
     tr.LAUNCHES = 0
     ids_by = serve_paths(svc, queries, gt, "main", {False: 0.95, True: 0.95})
     launches = tr.LAUNCHES
+    # serve_paths serves n_batches + 1 (a warm-up) for each rerank setting
     log(f"[main] traversal launches {launches} "
-        f"({launches / (2 * n_batches):.2f} per batch)")
+        f"({launches / (2 * (n_batches + 1)):.2f} per batch)")
     check(launches > 0, "the main path launched no traversal kernel")
     check_fused_hops(svc, queries, "main")
     with tempfile.TemporaryDirectory() as tmp:
@@ -664,7 +683,7 @@ def scalar_phase(path: str, dtype: str, queries, main_out) -> dict:
     ids_by = serve_paths(svc, queries, main_out["gt"], dtype, gate)
     launches = tr.LAUNCHES
     log(f"[{dtype}] traversal launches {launches} "
-        f"({launches / (2 * (len(queries) // BATCH)):.2f} per batch)")
+        f"({launches / (2 * (len(queries) // BATCH + 1)):.2f} per batch)")
     check(launches > 0, f"the {dtype} path launched no traversal kernel")
     if dtype == "uint8":
         if exact_bytes:
@@ -779,7 +798,7 @@ def adc_topk_np(codes, codebooks, q, k: int = 10):
 
 
 def pq_phase(path: str, data, queries, gt) -> dict:
-    from repro_torch.api import IndexSpec, SearchService
+    from repro_torch.api import IndexSpec, SearchRequest, SearchService
     from repro_torch.kernels import qdist as qd
 
     spq = SearchService.load(path, device=DEVICE)
@@ -796,6 +815,8 @@ def pq_phase(path: str, data, queries, gt) -> dict:
         f"{time.perf_counter() - t0:.1f}s")
     from repro_torch.launch.serve import serve_loop
 
+    # one untimed batch first, as serve_paths does
+    exact.search(SearchRequest(queries[:BATCH], k=10, ef=40)).ids.cpu()
     qd.TOPK_LAUNCHES = 0
     ids, st = serve_loop(exact, queries, BATCH, 10, 40,
                          log=lambda m: log(f"[pq-exact] {m}"))
@@ -838,7 +859,7 @@ def pq_phase(path: str, data, queries, gt) -> dict:
 
 def scan_tables(dev):
     """The scan phase's rows and queries: float32, and the uint8 / int8
-    codes of the port's VectorQuantizer (code rows, code-valued queries,
+    codes of the port's VectorQuantizer (code rows, code queries,
     out_scale), each with its rows' sums of squares."""
     from repro_torch.kernels.l2dist import sqnorms
     from repro_torch.optim import VectorQuantizer
@@ -852,23 +873,41 @@ def scan_tables(dev):
             check(quant.scale == 1.0 and quant.zero_point == 0,
                   "the scan rows are not bytes with max 255")
         tabs[dt] = (torch.from_numpy(quant.encode(data)).to(dev),
-                    torch.from_numpy(quant.encode_f32(queries)).to(dev),
+                    torch.from_numpy(quant.encode(queries)).to(dev),
                     quant.dist_scale)
     return {dt: (x, q, scale, sqnorms(x)) for dt, (x, q, scale) in tabs.items()}
 
 
-def scan_path(tabs) -> dict:
-    """The 8 batches through ops.l2topk, ops.l2topk_q (uint8, int8),
-    ops.l2dist and ops.l2dist_q, counters reset before and read after."""
-    from repro_torch.kernels import l2dist as ld, l2topk as lt, ops
+def scan_counts() -> dict:
+    """The exact-scan launch counters, by kernel row name."""
+    from repro_torch.kernels import l2dist as ld, l2topk as lt
     from repro_torch.kernels import qdist as qd
+
+    return {"l2dist": ld.TC_LAUNCHES, "l2dist_fma": ld.LAUNCHES,
+            "l2topk": lt.LAUNCHES, "l2dist_q": qd.L2DIST_Q_LAUNCHES,
+            "l2topk_q": qd.L2TOPK_Q_TC_LAUNCHES,
+            "l2topk_q_fma": qd.L2TOPK_Q_LAUNCHES}
+
+
+def reset_scan_counts() -> None:
+    from repro_torch.kernels import l2dist as ld, l2topk as lt
+    from repro_torch.kernels import qdist as qd
+
+    ld.TC_LAUNCHES = ld.LAUNCHES = lt.LAUNCHES = 0
+    qd.L2DIST_Q_LAUNCHES = qd.L2TOPK_Q_TC_LAUNCHES = qd.L2TOPK_Q_LAUNCHES = 0
+
+
+def scan_path(tabs) -> dict:
+    """The 8 batches through ops.l2topk, ops.l2topk_q (uint8, int8 code
+    queries), ops.l2dist and ops.l2dist_q, counters reset before and read
+    after."""
+    from repro_torch.kernels import ops
 
     x, q, _, xsq = tabs["float32"]
     u8, qu8, _, u8sq = tabs["uint8"]
     i8, qi8, s8, i8sq = tabs["int8"]
     out = {"float32": [], "uint8": [], "int8": [], "batch_ms": []}
-    ld.LAUNCHES = lt.LAUNCHES = qd.L2DIST_Q_LAUNCHES = 0
-    qd.L2TOPK_Q_LAUNCHES = 0
+    reset_scan_counts()
     for b in range(0, N_QUERIES, BATCH):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -886,9 +925,7 @@ def scan_path(tabs) -> dict:
                   and torch.equal(full.min(1).values, dv[:, 0]),
                   f"ops.{what} disagrees with ops.l2topk, batch {b // BATCH}")
             del full
-    out["launches"] = {"l2dist": ld.LAUNCHES, "l2topk": lt.LAUNCHES,
-                       "l2dist_q": qd.L2DIST_Q_LAUNCHES,
-                       "l2topk_q": qd.L2TOPK_Q_LAUNCHES}
+    out["launches"] = scan_counts()
     return out
 
 
@@ -907,10 +944,12 @@ def max_err(got, want) -> float:
 
 
 def scan_kernel_checks(tabs, g) -> dict:
-    """Each kernel against its plain version at 256 x 1M: bitwise on the
-    integer rows and codes, with and without 16 pad rows; within SCAN_TOL
-    on unit-norm rows (cosine) and Gaussian rows. Returns each kernel's
-    largest |kernel - plain|."""
+    """Every exact-scan kernel, both routes of l2dist and l2topk_q, against
+    its plain version at 256 x 1M: bitwise on the integer rows and codes,
+    with and without 16 pad rows (l2topk_q at k = 1, 10 and 64); within
+    SCAN_TOL on unit-norm rows (cosine) and Gaussian rows (l2, ip); and
+    the ragged shapes each route takes or leaves by shape. Returns each
+    kernel row's largest |kernel - plain|."""
     from repro_torch.kernels import l2dist as ld, l2topk as lt
     from repro_torch.kernels import qdist as qd
 
@@ -918,58 +957,70 @@ def scan_kernel_checks(tabs, g) -> dict:
     q = q[:BATCH]
     pad = xsq.clone()
     pad[N_SCAN - 16:] = float("inf")
-    err = dict.fromkeys(("l2dist", "l2topk", "l2dist_q", "l2topk_q"), 0.0)
-    cases = []
+    err = dict.fromkeys(scan_counts(), 0.0)
+
+    def held(name, tag, got, want):
+        check(same(got, want), f"{name} != plain ({tag})")
+        if isinstance(got, tuple) and "pads=True" in tag:
+            check(int(got[1].max()) < N_SCAN - 16, f"{name} returned a pad row")
+        err[name] = max(err[name], max_err(got, want))
+        log(f"[scan] {name} {tag}: bitwise equal to its plain version")
+
     for xs in (None, pad):
-        cases += [("l2dist", f"l2 (xsq pads={xs is not None})",
-                   lambda xs=xs: ld.l2dist_cuda(q, x, xs),
-                   lambda xs=xs: ld.l2dist_ref(q, x, xs)),
-                  ("l2topk", f"float32 (xsq pads={xs is not None})",
-                   lambda xs=xs: lt.l2topk_cuda(q, x, xs, k=SCAN_K),
-                   lambda xs=xs: lt.l2topk_ref(q, x, xs, k=SCAN_K))]
-    cases.append(("l2dist", "ip", lambda: ld.l2dist_cuda(q, x, metric="ip"),
-                  lambda: ld.l2dist_ref(q, x, metric="ip")))
+        tag = f"{BATCH} x {N_SCAN} x 128, l2 (xsq pads={xs is not None})"
+        want = ld.l2dist_ref(q, x, xs)
+        held("l2dist", tag, ld.l2dist_tc_cuda(q, x, xs), want)
+        held("l2dist_fma", tag, ld.l2dist_fma_cuda(q, x, xs), want)
+        del want
+        held("l2topk", f"{BATCH} x {N_SCAN} x 128, float32 (xsq pads="
+                       f"{xs is not None})", lt.l2topk_cuda(q, x, xs, k=SCAN_K),
+             lt.l2topk_ref(q, x, xs, k=SCAN_K))
+    for metric in ("ip", "cosine"):
+        want = ld.l2dist_ref(q, x, metric=metric)
+        held("l2dist", f"{BATCH} x {N_SCAN} x 128, {metric}",
+             ld.l2dist_tc_cuda(q, x, metric=metric), want)
+        held("l2dist_fma", f"{BATCH} x {N_SCAN} x 128, {metric}",
+             ld.l2dist_fma_cuda(q, x, metric=metric), want)
+        del want
     for dt in ("uint8", "int8"):
         c, qc, scale, csq = tabs[dt]
         qc = qc[:BATCH]
         cpad = torch.where(torch.isinf(pad), pad, csq)
         for xs in (None, cpad):
-            tag = f"{dt} (xsq pads={xs is not None})"
-            cases += [("l2dist_q", tag,
-                       lambda c=c, qc=qc, xs=xs, s=scale:
-                           qd.l2dist_q_cuda(qc, c, xs, out_scale=s),
-                       lambda c=c, qc=qc, xs=xs, s=scale:
-                           qd.l2dist_q_ref(qc, c, xs, out_scale=s)),
-                      ("l2topk_q", tag,
-                       lambda c=c, qc=qc, xs=xs, s=scale:
-                           qd.l2topk_q_cuda(qc, c, xs, k=SCAN_K, out_scale=s),
-                       lambda c=c, qc=qc, xs=xs, s=scale:
-                           qd.l2topk_q_ref(qc, c, xs, k=SCAN_K, out_scale=s))]
-    for name, tag, kern, plain in cases:
-        got, want = kern(), plain()
-        check(same(got, want), f"{name} != plain ({tag})")
-        if isinstance(got, tuple) and "pads=True" in tag:
-            check(int(got[1].max()) < N_SCAN - 16, f"{name} returned a pad row")
-        err[name] = max(err[name], max_err(got, want))
-        log(f"[scan] {name} {BATCH} x {N_SCAN} x 128, {tag}: bitwise equal "
-            f"to its plain version")
-        del got, want
-    # float data: unit-norm rows for cosine, Gaussian rows for l2
+            tag = f"{BATCH} x {N_SCAN} x 128, {dt} (xsq pads={xs is not None})"
+            held("l2dist_q", tag, qd.l2dist_q_cuda(qc, c, xs, out_scale=scale),
+                 qd.l2dist_q_ref(qc, c, xs, out_scale=scale))
+            for k in (1, SCAN_K, 64):
+                want = qd.l2topk_q_ref(qc, c, xs, k=k, out_scale=scale)
+                held("l2topk_q", f"{tag}, k={k}",
+                     qd.l2topk_q_tc_cuda(qc, c, xs, k=k, out_scale=scale), want)
+                # the FMA route takes the same queries as code-valued floats
+                held("l2topk_q_fma", f"{tag}, k={k}",
+                     qd.l2topk_q_fma_cuda(qc.float(), c, xs, k=k,
+                                          out_scale=scale), want)
+                del want
+    scan_ragged_checks(tabs, err)
+    # float data: unit-norm rows for cosine, Gaussian rows for l2 and ip
     gx = torch.randn((N_SCAN, 128), generator=g, device=DEVICE)
     gq = torch.randn((BATCH, 128), generator=g, device=DEVICE)
     for what, xs, qs, metric in (
             ("unit-norm", gx / gx.norm(dim=1, keepdim=True),
              gq / gq.norm(dim=1, keepdim=True), "cosine"),
-            ("Gaussian", gx, gq, "l2")):
+            ("Gaussian", gx, gq, "ip"), ("Gaussian", gx, gq, "l2")):
         tol = SCAN_TOL * (ld.sqnorms(qs)[:, None] + ld.sqnorms(xs)[None, :])
-        got, want = ld.l2dist_cuda(qs, xs, metric=metric), ld.l2dist_ref(
-            qs, xs, metric=metric)
-        check(bool(((got - want).abs() <= tol).all()),
-              f"l2dist ({metric}, {what} rows) beyond the tolerance")
-        err["l2dist"] = max(err["l2dist"], max_err(got, want))
-        del got, want
-        log(f"[scan] l2dist {metric} on {what} rows: within {SCAN_TOL} x "
-            f"(|q|^2 + |x|^2) of its plain version")
+        want = ld.l2dist_ref(qs, xs, metric=metric)
+        for name, fn in (("l2dist", ld.l2dist_tc_cuda),
+                         ("l2dist_fma", ld.l2dist_fma_cuda)):
+            got = fn(qs, xs, metric=metric)
+            d = (got - want).abs()
+            check(bool((d <= tol).all()),
+                  f"{name} ({metric}, {what} rows) beyond the tolerance")
+            err[name] = max(err[name], float(d.max()))
+            log(f"[scan] {name} {metric} on {what} rows: within {SCAN_TOL} x "
+                f"(|q|^2 + |x|^2) of its plain version (largest share of it "
+                f"{float((d / tol).max()) * SCAN_TOL:.3e})")
+            del got, d
+        del want
         if metric != "l2":
             continue
         (gv, gi), (wv, wi) = lt.l2topk_cuda(qs, xs, k=SCAN_K), \
@@ -994,54 +1045,138 @@ def scan_kernel_checks(tabs, g) -> dict:
     return err
 
 
+def scan_ragged_checks(tabs, err) -> None:
+    """The dispatching wrappers at shapes off the main path's: Bq = 3 and
+    Bx = 70,000 (not a multiple of 64) at D = 128 and 48, which the
+    tensor-core kernels take, and D = 200 (l2dist also Bx = 70,001), which
+    they leave to the FMA kernels; bitwise against the plain versions, and
+    each launch on the counter its route names."""
+    from repro_torch.kernels import l2dist as ld
+    from repro_torch.kernels import qdist as qd
+
+    x, q, _, _ = tabs["float32"]
+    cases = [("l2dist", 70_000, 128), ("l2dist", 70_000, 48),
+             ("l2dist_fma", 70_000, 200), ("l2dist_fma", 70_001, 128)]
+    for name, bx, d in cases:
+        xs = (x[:bx, :d] if d <= 128 else
+              torch.cat([x[:bx], x[:bx, :d - 128]], 1)).contiguous()
+        qs = (q[:3, :d] if d <= 128 else
+              torch.cat([q[:3], q[:3, :d - 128]], 1)).contiguous()
+        before = scan_counts()
+        for metric in ("l2", "ip"):
+            got, want = ld.l2dist_cuda(qs, xs, metric=metric), ld.l2dist_ref(
+                qs, xs, metric=metric)
+            check(same(got, want), f"l2dist_cuda != plain at 3 x {bx} x {d}, "
+                                   f"{metric}")
+            err[name] = max(err[name], max_err(got, want))
+        torch.cuda.synchronize()
+        moved = {n: v - before[n] for n, v in scan_counts().items() if
+                 v != before[n]}
+        check(moved == {name: 2}, f"l2dist_cuda at 3 x {bx} x {d} launched "
+                                  f"{moved}, expected {{{name!r}: 2}}")
+        log(f"[scan] l2dist_cuda 3 x {bx} x {d}: bitwise equal to its plain "
+            f"version, on {name}")
+    for dt in ("uint8", "int8"):
+        c, qc, scale, _ = tabs[dt]
+        for name, d in (("l2topk_q", 128), ("l2topk_q", 48),
+                        ("l2topk_q_fma", 200)):
+            cs = (c[:70_000, :d] if d <= 128 else
+                  torch.cat([c[:70_000], c[:70_000, :d - 128]], 1)).contiguous()
+            qs = (qc[:3, :d] if d <= 128 else
+                  torch.cat([qc[:3], qc[:3, :d - 128]], 1)).contiguous()
+            before = scan_counts()
+            for k in (1, SCAN_K, 64):
+                got = qd.l2topk_q_cuda(qs, cs, k=k, out_scale=scale)
+                want = qd.l2topk_q_ref(qs, cs, k=k, out_scale=scale)
+                check(same(got, want), f"l2topk_q_cuda != plain at 3 x 70000 "
+                                       f"x {d}, {dt}, k={k}")
+                err[name] = max(err[name], max_err(got, want))
+            torch.cuda.synchronize()
+            moved = {n: v - before[n] for n, v in scan_counts().items() if
+                     v != before[n]}
+            check(moved == {name: 3}, f"l2topk_q_cuda at 3 x 70000 x {d} "
+                                      f"({dt}) launched {moved}")
+            log(f"[scan] l2topk_q_cuda 3 x 70000 x {d}, {dt} codes, k = 1, "
+                f"{SCAN_K}, 64: bitwise equal to its plain version, on {name}")
+
+
 def scan_timing(tabs, reps: int = 5) -> dict:
     """Each kernel, its plain version and its library yardstick (one
     torch.addmm, then torch.topk for the fused scans; codes cast to float32
-    before timing) at 256 x 1M x 128, device ms as the median of `reps`."""
+    before timing) at 256 x 1M x 128, device ms as the median of `reps`;
+    the tensor-core and FMA routes of l2dist and l2topk_q on the same
+    inputs, in the same call. Bounds at the units each kernel uses: FP32
+    FMAs, TF32 (3 products) or int8 tensor cores."""
     from repro_torch.kernels import l2dist as ld, l2topk as lt
     from repro_torch.kernels import qdist as qd
 
     out = {}
-    for dt in ("float32", "uint8"):
+    for dt in ("float32", "uint8", "int8"):
         x, q, _, xsq = tabs[dt]
         q = q[:BATCH]
-        qsq = ld.sqnorms(q)
-        xf = x.float()
+        qf, xf = q.float(), x.float()
+        qsq = ld.sqnorms(qf)
         bq, (bx, d) = q.shape[0], x.shape
         ops_ = 2.0 * bq * bx * d
-        peak = FP32_FLOPS if dt == "float32" else INT8_OPS
-        in_bytes = q.numel() * 4 + x.numel() * x.element_size() + bx * 4
-        dist_lib = (lambda xf=xf, q=q, qsq=qsq, xsq=xsq: torch.addmm(
-            qsq[:, None] + xsq[None, :], q, xf.T, alpha=-2))
+        in_bytes = q.numel() * q.element_size() + x.numel() * x.element_size() \
+            + bx * 4
+        dist_lib = (lambda xf=xf, qf=qf, qsq=qsq, xsq=xsq: torch.addmm(
+            qsq[:, None] + xsq[None, :], qf, xf.T, alpha=-2))
+        topk_lib = (lambda lib=dist_lib: torch.topk(lib(), SCAN_K, dim=1,
+                                                    largest=False))
+        dist_out, topk_out = bq * bx * 4, bq * SCAN_K * 8
         if dt == "float32":
-            names = ("l2dist", "l2topk")
-            kern = (lambda: ld.l2dist_cuda(q, x, xsq),
-                    lambda: lt.l2topk_cuda(q, x, xsq, k=SCAN_K))
-            plain = (lambda: ld.l2dist_ref(q, x, xsq),
-                     lambda: lt.l2topk_ref(q, x, xsq, k=SCAN_K))
+            rows = (("l2dist", lambda: ld.l2dist_tc_cuda(q, x, xsq),
+                     lambda: ld.l2dist_ref(q, x, xsq), dist_lib, dist_out,
+                     3 * ops_, TF32_FLOPS),
+                    ("l2dist_fma", lambda: ld.l2dist_fma_cuda(q, x, xsq),
+                     lambda: ld.l2dist_ref(q, x, xsq), dist_lib, dist_out,
+                     ops_, FP32_FLOPS),
+                    ("l2topk", lambda: lt.l2topk_cuda(q, x, xsq, k=SCAN_K),
+                     lambda: lt.l2topk_ref(q, x, xsq, k=SCAN_K), topk_lib,
+                     topk_out, ops_, FP32_FLOPS))
+        elif dt == "uint8":
+            rows = (("l2dist_q", lambda: qd.l2dist_q_cuda(q, x, xsq),
+                     lambda: qd.l2dist_q_ref(q, x, xsq), dist_lib, dist_out,
+                     ops_, INT8_OPS),
+                    ("l2topk_q", lambda: qd.l2topk_q_tc_cuda(q, x, xsq,
+                                                             k=SCAN_K),
+                     lambda: qd.l2topk_q_ref(q, x, xsq, k=SCAN_K), topk_lib,
+                     topk_out, ops_, INT8_OPS),
+                    ("l2topk_q_fma", lambda: qd.l2topk_q_fma_cuda(
+                        qf, x, xsq, k=SCAN_K),
+                     lambda: qd.l2topk_q_ref(q, x, xsq, k=SCAN_K), topk_lib,
+                     topk_out, ops_, INT8_OPS))
         else:
-            names = ("l2dist_q", "l2topk_q")
-            kern = (lambda: qd.l2dist_q_cuda(q, x, xsq),
-                    lambda: qd.l2topk_q_cuda(q, x, xsq, k=SCAN_K))
-            plain = (lambda: qd.l2dist_q_ref(q, x, xsq),
-                     lambda: qd.l2topk_q_ref(q, x, xsq, k=SCAN_K))
-        libs = (dist_lib, lambda lib=dist_lib: torch.topk(
-            lib(), SCAN_K, dim=1, largest=False))
-        outs = (bq * bx * 4, bq * SCAN_K * 8)
-        for name, kf, pf, lf, ob in zip(names, kern, plain, libs, outs):
-            b_ms, b_by = bound(in_bytes + ob, ops_, peak)
+            rows = (("l2topk_q_int8", lambda: qd.l2topk_q_tc_cuda(
+                q, x, xsq, k=SCAN_K),
+                     lambda: qd.l2topk_q_ref(q, x, xsq, k=SCAN_K), topk_lib,
+                     topk_out, ops_, INT8_OPS),
+                    ("l2topk_q_fma_int8", lambda: qd.l2topk_q_fma_cuda(
+                        qf, x, xsq, k=SCAN_K),
+                     lambda: qd.l2topk_q_ref(q, x, xsq, k=SCAN_K), topk_lib,
+                     topk_out, ops_, INT8_OPS))
+        for name, kf, pf, lf, ob, n_ops, peak in rows:
+            b_ms, b_by = bound(in_bytes + ob, n_ops, peak)
             t = {"ms": median_ms(kf, reps), "plain_ms": median_ms(pf, reps),
                  "library_ms": median_ms(lf, reps), "bound_ms": b_ms,
                  "bound_by": b_by}
             out[name] = t
+            unit = "GFLOP" if dt == "float32" else "GOP"
             log(f"[scan] timing {name} ({dt} rows, {bq} x {bx} x {d}"
                 f"{f', k={SCAN_K}' if 'topk' in name else ''}): kernel "
-                f"{t['ms']:.4f} ms, plain "
-                f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
-                f"bound {b_ms:.5f} ms ({b_by}: {(in_bytes + ob) / 1e6:.1f} MB, "
-                f"{ops_ / 1e9:.1f} G{'FLOP' if dt == 'float32' else 'OP'})")
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                f"{t['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+                f"{(in_bytes + ob) / 1e6:.1f} MB, {n_ops / 1e9:.1f} {unit} at "
+                f"{peak / 1e12:.0f} T/s)")
             torch.cuda.empty_cache()
-        del xf
+        del xf, qf
+    for fast, slow in (("l2dist", "l2dist_fma"), ("l2topk_q", "l2topk_q_fma"),
+                       ("l2topk_q_int8", "l2topk_q_fma_int8")):
+        log(f"[scan] {fast} (tensor cores) {out[fast]['ms']:.4f} ms against "
+            f"the FMA route's {out[slow]['ms']:.4f} ms: "
+            f"{out[slow]['ms'] / out[fast]['ms']:.2f}x; library "
+            f"{out[fast]['library_ms']:.4f} ms")
     return out
 
 
@@ -1064,8 +1199,13 @@ def scan_phase(seed: int) -> dict:
         f"{launches}; ops.l2topk host clock per batch, median "
         f"{np.median(path['batch_ms']):.3f} ms, max "
         f"{max(path['batch_ms']):.3f} ms")
-    for name, n in launches.items():
-        check(n > 0, f"the scan path launched no {name} kernel")
+    n_batches = N_QUERIES // BATCH
+    check(launches == {"l2dist": n_batches, "l2dist_fma": 0,
+                       "l2topk": n_batches, "l2dist_q": n_batches,
+                       "l2topk_q": 2 * n_batches, "l2topk_q_fma": 0},
+          f"the scan path's launches {launches}: expected every l2dist and "
+          f"l2topk_q launch on the tensor-core kernels, none on their FMA "
+          f"routes")
     x, q, _, xsq = tabs["float32"]
     i8, qi8, s8, i8sq = tabs["int8"]
     for i, b in enumerate(range(0, N_QUERIES, BATCH)):
@@ -1751,9 +1891,11 @@ def main(argv=None) -> int:
     csrc = "src/repro_torch/kernels/csrc/"
     for name, source, replaces in (
             ("l2topk", "l2topk.cu", "src/repro/kernels/l2topk.py:65"),
-            ("l2dist", "l2dist.cu", "src/repro/kernels/l2dist.py:57"),
+            ("l2dist", "l2dist_tc.cu", "src/repro/kernels/l2dist.py:57"),
+            ("l2dist_fma", "l2dist.cu", "src/repro/kernels/l2dist.py:57"),
             ("l2dist_q", "l2dist.cu", "src/repro/kernels/qdist.py:77"),
-            ("l2topk_q", "l2topk.cu", "src/repro/kernels/qdist.py:158")):
+            ("l2topk_q", "l2topk_q_tc.cu", "src/repro/kernels/qdist.py:158"),
+            ("l2topk_q_fma", "l2topk.cu", "src/repro/kernels/qdist.py:158")):
         sc = scan[name] if scan else None
         t = sc and sc["timing"]
         rows.append(kernel_row(name, csrc + source, replaces,

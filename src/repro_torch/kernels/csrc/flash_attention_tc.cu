@@ -54,7 +54,24 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using hopper::desc_sw128;
+using hopper::encoder;
+using hopper::fence_regs;
+using hopper::kEncodeFailed;
+using hopper::kNoEncoder;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::tma_load_3d;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait_all;
 
 constexpr int kConsumers = 2;               // warpgroups of 64 query rows
 constexpr int kBQ = 64 * kConsumers;        // query rows a CTA
@@ -63,9 +80,6 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kBoxBytes = kBK * 128;        // [64 keys][64 bf16], one box
 constexpr int kQBoxBytes = kBQ * 128;       // [128 rows][64 bf16]
 constexpr float kNegInf = -1e30f;           // the reference's NEG_INF
-
-// Error codes beside cudaError_t's (see repro_flash_attention_tc_error_string)
-constexpr int kNoEncoder = -1, kEncodeFailed = -2;
 
 // Shared memory of a CTA at NG 64-column groups of hd (byte offsets from a
 // 1024-byte aligned base: the 128-byte swizzle repeats every 1024 bytes).
@@ -79,98 +93,14 @@ struct Smem {
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete. A wait of more than
-// about 10 s (2^34 clocks) can only be a fault in the pipeline: it traps,
-// so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = clock64();
-    else if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 state;\n"
-               "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("{\n.reg .b64 state;\n"
-               "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n"
-               "}\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// One TMA box of `map` at (column d, row, head bh) into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d, int row,
-                                         int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(row),
-      "r"(bh) : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: 8-row
-// groups 1024 bytes apart (SBO); `lbo` is the stride between 64-column
-// boxes, read only for MN-major operands wider than one box.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// The accumulator is written by the tensor cores until the wait: keep the
-// compiler from moving its reads or writes across this point.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define REPRO_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define REPRO_D32                                                     \
-  REPRO_D4(0), REPRO_D4(4), REPRO_D4(8), REPRO_D4(12), REPRO_D4(16), \
-      REPRO_D4(20), REPRO_D4(24), REPRO_D4(28)
-#define REPRO_D32_LIST                                                  \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
-  "%28, %29, %30, %31}"
-
 // d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_D32_LIST
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : REPRO_D32
+      : HOPPER_D32("+f")
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -181,9 +111,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_D32_LIST
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : REPRO_D32
+      : HOPPER_D32("+f")
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -233,7 +163,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 4 * kConsumers);  // one arrival a warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    hopper::mbar_fence_init();
   }
   __syncthreads();
 
@@ -244,15 +174,15 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 128 * kConsumers) {
       mbar_expect_tx(q_full, NG * kQBoxBytes);
       for (int g = 0; g < NG; ++g)
-        tma_load(sq + g * kQBoxBytes, &tm_q, q_full, 64 * g, q0, bh);
+        tma_load_3d(sq + g * kQBoxBytes, &tm_q, q_full, 64 * g, q0, bh);
       for (int kb = 0; kb <= last; ++kb) {
         const int st = kb % kStages;
         mbar_wait(empty + 8 * st, ((kb / kStages) & 1) ^ 1);
         mbar_expect_tx(full + 8 * st, 2 * NG * kBoxBytes);
         for (int g = 0; g < NG; ++g) {
           const uint32_t off = (st * NG + g) * kBoxBytes;
-          tma_load(sk + off, &tm_k, full + 8 * st, 64 * g, kb * kBK, bh);
-          tma_load(sv + off, &tm_v, full + 8 * st, 64 * g, kb * kBK, bh);
+          tma_load_3d(sk + off, &tm_k, full + 8 * st, 64 * g, kb * kBK, bh);
+          tma_load_3d(sv + off, &tm_v, full + 8 * st, 64 * g, kb * kBK, bh);
         }
       }
     }
@@ -382,33 +312,6 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, reached through the runtime (no
-// -lcuda on the nvcc line).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A tensor map over x [BH, rows, hd] bf16 with boxes [1, box_rows, 64].
 bool encode(CUtensorMap* map, const void* x, int BH, int rows, int hd,
             int box_rows) {
@@ -476,9 +379,5 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k,
 }
 
 extern "C" const char* repro_flash_attention_tc_error_string(int err) {
-  if (err == kNoEncoder)
-    return "cuTensorMapEncodeTiled not found in libcuda";
-  if (err == kEncodeFailed)
-    return "cuTensorMapEncodeTiled refused a tensor map";
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return hopper::error_string(err);
 }

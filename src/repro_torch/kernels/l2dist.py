@@ -18,11 +18,27 @@ agree bitwise. On general float data they sum in different orders; the
 tests hold them within |d - d'| <= 1e-5 * (qsq + xsq).
 
 `l2dist_ref` is the plain version: the CPU path and the yardstick the
-kernel is compared with on the card (a float32 `q @ x.T` per chunk of
+kernels are compared with on the card (a float32 `q @ x.T` per chunk of
 rows; TF32 must be off, `torch.backends.cuda.matmul.allow_tf32 = False`,
-PyTorch's default). `l2dist_cuda` launches `csrc/l2dist.cu` (built by
-`_build.py`) and counts its launches in `LAUNCHES`. `ops.l2dist` picks one
-by the tensors' device.
+PyTorch's default). `l2dist_cuda` launches one of two CUDA kernels (built
+by `_build.py`), chosen by dtype and shape:
+
+- `csrc/l2dist_tc.cu`, 3 x TF32 on the tensor cores (wgmma, TMA), for
+  float32 queries and rows with D a multiple of 4 up to 128, Bx a
+  multiple of 4 and 16-byte aligned bases (`takes_tensor_cores`): TMA
+  addresses rows in 16-byte steps, and 128 columns of queries, split in
+  two pieces, fill the shared memory it leaves beside the row ring.
+  `l2dist_tc_cuda` launches it and counts in `TC_LAUNCHES`. Its split
+  (`tf32_split`) keeps integer-valued rows up to 2048 exact, so the
+  bitwise agreement above holds; on float data it is within 3e-6 *
+  (qsq + xsq) of the exact dot.
+- `csrc/l2dist.cu`, FP32 FMAs, for 8-bit rows and the float32 shapes the
+  tensor-core kernel refuses. `l2dist_fma_cuda` launches it and counts in
+  `LAUNCHES`.
+
+This is a choice by shape, not a fallback: a failed build or launch of
+either raises. `ops.l2dist` picks the plain version or `l2dist_cuda` by
+the tensors' device.
 """
 
 from __future__ import annotations
@@ -34,12 +50,15 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["LAUNCHES", "METRICS", "ROW_DTYPES", "as_f32", "data_ptr",
-           "distance_matrix_ref", "launch_distance_matrix", "l2dist_ref",
-           "l2dist_cuda", "raise_on", "row_operands", "sqnorms"]
+__all__ = ["LAUNCHES", "METRICS", "ROW_DTYPES", "TC_LAUNCHES", "as_f32",
+           "data_ptr", "distance_matrix_ref", "launch_distance_matrix",
+           "l2dist_ref", "l2dist_cuda", "l2dist_fma_cuda", "l2dist_tc_cuda",
+           "raise_on", "row_operands", "sqnorms", "takes_tensor_cores",
+           "tf32_split"]
 
-# launches of the CUDA kernel since import (or since a caller reset it)
-LAUNCHES = 0
+# launches of each CUDA kernel since import (or since a caller reset them)
+LAUNCHES = 0                      # csrc/l2dist.cu (FP32 FMAs)
+TC_LAUNCHES = 0                   # csrc/l2dist_tc.cu (3 x TF32)
 
 METRICS = {"l2": 0, "ip": 1, "cosine": 2}
 # row types csrc/l2dist.cu and csrc/l2topk.cu are compiled for
@@ -95,6 +114,15 @@ def l2dist_ref(queries, xs, xsq=None, *, metric: str = "l2"):
     return distance_matrix_ref(queries, xs, xsq, metric=metric)
 
 
+def tf32_split(x):
+    """(hi, lo) of float32 `x` as `csrc/l2dist_tc.cu` splits it: hi keeps
+    the bits the TF32 units read (x & 0xffffe000), lo = x - hi, so hi + lo
+    == x exactly; lo is 0 on integers up to 2048."""
+    x = x.float().contiguous()
+    hi = (x.view(torch.int32) & -(1 << 13)).view(torch.float32)
+    return hi, x - hi
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel's wrapper
 # ---------------------------------------------------------------------------
@@ -105,6 +133,25 @@ _SIGNATURES = {
                      [_P] * 5 + [_I] * 9 + [ctypes.c_float, _P]),
     "repro_l2dist_error_string": (ctypes.c_char_p, [_I]),
 }
+_TC_SIGNATURES = {
+    "repro_l2dist_tc": (ctypes.c_int, [_P] * 5 + [_I] * 5 + [_P]),
+    "repro_l2dist_tc_error_string": (ctypes.c_char_p, [_I]),
+}
+# the tensor-core kernel's widest D: the queries' two pieces and a 3-stage
+# row ring at 128 columns take 192 KB of shared memory
+TC_MAX_D = 128
+
+
+def takes_tensor_cores(queries, xs) -> bool:
+    """Whether `l2dist_cuda` gives these operands to the tensor-core
+    kernel: float32 queries and rows, D a multiple of 4 up to `TC_MAX_D`,
+    Bx a multiple of 4 (TMA's row pitch, 16 bytes, of the rows and of the
+    [Bq, Bx] output) and 16-byte aligned bases. Everything else goes to
+    the FP32-FMA kernel."""
+    d = xs.shape[-1]
+    return (queries.dtype == torch.float32 and xs.dtype == torch.float32
+            and d % 4 == 0 and d <= TC_MAX_D and xs.shape[0] % 4 == 0
+            and queries.data_ptr() % 16 == 0 and xs.data_ptr() % 16 == 0)
 
 
 def row_operands(queries, xs, xsq, row_dtypes, what: str):
@@ -179,13 +226,54 @@ def launch_distance_matrix(queries, xs, xsq, *, metric: str,
     return out
 
 
-def l2dist_cuda(queries, xs, xsq=None, *, metric: str = "l2"):
-    """Launch `csrc/l2dist.cu` on the current stream: d [Bq, Bx] float32
-    under `metric` over float32, uint8 or int8 rows. Raises on any other
-    device, dtype, shape or layout."""
+def l2dist_fma_cuda(queries, xs, xsq=None, *, metric: str = "l2"):
+    """Launch `csrc/l2dist.cu` (FP32 FMAs) on the current stream: d [Bq,
+    Bx] float32 under `metric` over float32, uint8 or int8 rows. Raises on
+    any other device, dtype, shape or layout."""
     global LAUNCHES
     out = launch_distance_matrix(queries, xs, xsq, metric=metric,
                                  out_scale=None, row_dtypes=ROW_DTYPES,
                                  what="l2dist")
     LAUNCHES += 1
     return out
+
+
+def l2dist_tc_cuda(queries, xs, xsq=None, *, metric: str = "l2"):
+    """Launch `csrc/l2dist_tc.cu` (3 x TF32 on the tensor cores) on the
+    current stream: d [Bq, Bx] float32 under `metric`. Raises on operands
+    `takes_tensor_cores` refuses, as `row_operands` does, and if the
+    launch fails."""
+    global TC_LAUNCHES
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    q, _, _, dev = row_operands(queries, xs, xsq, (torch.float32,), "l2dist")
+    if not takes_tensor_cores(q, xs):
+        raise ValueError(f"l2dist: the tensor-core kernel takes float32 "
+                         f"queries and rows with D % 4 == 0, D <= {TC_MAX_D}, "
+                         f"Bx % 4 == 0 and 16-byte aligned bases; got "
+                         f"{queries.dtype} queries, {tuple(xs.shape)}")
+    (bq, d), bx = q.shape, xs.shape[0]
+    qsq = None
+    if metric == "l2":
+        qsq = sqnorms(q)
+        xsq = sqnorms(xs) if xsq is None else xsq
+    out = torch.empty((bq, bx), dtype=torch.float32, device=dev)
+    lib = _build.load("l2dist_tc", _TC_SIGNATURES)
+    err = lib.repro_l2dist_tc(
+        q.data_ptr(), xs.data_ptr(), data_ptr(qsq),
+        data_ptr(xsq if metric == "l2" else None), out.data_ptr(),
+        dev.index or 0, bq, bx, d, METRICS[metric],
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, "repro_l2dist_tc_error_string", err,
+             "l2dist (tensor cores)")
+    TC_LAUNCHES += 1
+    return out
+
+
+def l2dist_cuda(queries, xs, xsq=None, *, metric: str = "l2"):
+    """d [Bq, Bx] float32 from one of the two CUDA kernels, chosen by
+    dtype and shape: `l2dist_tc_cuda` where `takes_tensor_cores` holds,
+    else `l2dist_fma_cuda`. Raises as they do."""
+    if takes_tensor_cores(queries, xs):
+        return l2dist_tc_cuda(queries, xs, xsq, metric=metric)
+    return l2dist_fma_cuda(queries, xs, xsq, metric=metric)

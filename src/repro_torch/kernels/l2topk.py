@@ -40,8 +40,8 @@ from repro_torch.kernels.l2dist import (
     sqnorms,
 )
 
-__all__ = ["LAUNCHES", "MAX_K", "MAX_SPLITS", "fused_topk_ref",
-           "launch_fused_topk", "l2topk_ref", "l2topk_cuda"]
+__all__ = ["LAUNCHES", "MAX_K", "MAX_SPLITS", "MERGE_CANDIDATES",
+           "fused_topk_ref", "launch_fused_topk", "l2topk_ref", "l2topk_cuda"]
 
 # launches of the CUDA kernel since import (or since a caller reset it)
 LAUNCHES = 0
@@ -55,7 +55,7 @@ _CTAS = 2 * 132
 # candidates a query the split merge takes at most: its rank counting
 # outgrows a split's gain above this (at 256 x 1M, k=64: 6.6 ms with 32
 # splits, 18.3 ms with 128; PERF.md §6)
-_MERGE_CANDIDATES = 2048
+MERGE_CANDIDATES = 2048
 # rows a plain version takes at once: a [Bq, 65536] float32 tile
 _CHUNK = 1 << 16
 _INF = float("inf")
@@ -129,7 +129,7 @@ def launch_fused_topk(queries, xs, xsq, *, k: int, out_scale: float | None,
     xsq = sqnorms(xs) if xsq is None else xsq
     groups = -(-bq // _QBLOCK)
     splits = max(1, min(MAX_SPLITS, -(-_CTAS // max(groups, 1)),
-                        -(-bx // _TILE), _MERGE_CANDIDATES // k))
+                        -(-bx // _TILE), MERGE_CANDIDATES // k))
     part_d = torch.empty((bq, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((bq, splits, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((bq, k), dtype=torch.float32, device=dev)

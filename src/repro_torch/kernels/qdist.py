@@ -9,12 +9,23 @@ the plain PyTorch versions and the wrappers of their CUDA kernels.
               quantizer's scale^2) multiplies the k winners after it
               -> (dists [Bq, k] f32 ascending, ids [Bq, k] int32)
 
-Queries are codes or code-valued float32; codes are widened to float32
-(int8 sign-extended), so at D <= 256 every dot product is an exact
-integer and kernel, plain version and reference agree bitwise. These run
-on `csrc/l2dist.cu` / `csrc/l2topk.cu` (see `kernels/l2dist.py`,
-`kernels/l2topk.py`; the same order, pad and tail rules) and count their
-launches in `L2DIST_Q_LAUNCHES` / `L2TOPK_Q_LAUNCHES`.
+Queries are codes or code-valued float32; at D <= 256 every dot product
+is an exact integer and kernel, plain version and reference agree
+bitwise. `l2dist_q` runs on `csrc/l2dist.cu` (see `kernels/l2dist.py`;
+codes widened to float32, int8 sign-extended) and counts its launches in
+`L2DIST_Q_LAUNCHES`. `l2topk_q` runs on one of two kernels, chosen by
+dtype and shape (the order, pad and tail rules of `kernels/l2topk.py`):
+
+- `csrc/l2topk_q_tc.cu`, u8 / s8 `wgmma` into exact int32 sums, for
+  queries given as codes of the rows' dtype with D a multiple of 16 up to
+  256 and 16-byte aligned bases (`takes_tensor_cores`);
+  `l2topk_q_tc_cuda` launches it and counts in `L2TOPK_Q_TC_LAUNCHES`.
+- `csrc/l2topk.cu`, FP32 FMAs over codes widened to float32, for
+  code-valued float32 queries and the other shapes; `l2topk_q_fma_cuda`
+  launches it and counts in `L2TOPK_Q_LAUNCHES`.
+
+No value of the input is read to choose, and a failed build or launch of
+either raises.
 
     pq_adc : luts [Bq, M, 256] f32 x codes [Bx, M] uint8 (+ xpad [Bx] f32)
              -> d [Bq, Bx] f32,  d[q, x] = xpad[x] + sum_m lut[q, m, code[x, m]]
@@ -46,21 +57,33 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.l2dist import (
+    ROW_DTYPES,
+    as_f32,
     distance_matrix_ref,
     launch_distance_matrix,
+    raise_on,
+    row_operands,
+    sqnorms,
 )
-from repro_torch.kernels.l2topk import fused_topk_ref, launch_fused_topk
+from repro_torch.kernels.l2topk import (
+    MAX_SPLITS as _L2TOPK_MAX_SPLITS,
+    MERGE_CANDIDATES,
+    fused_topk_ref,
+    launch_fused_topk,
+)
 
 __all__ = ["ADC_LAUNCHES", "TOPK_LAUNCHES", "L2DIST_Q_LAUNCHES",
-           "L2TOPK_Q_LAUNCHES", "MAX_K", "l2dist_q_ref", "l2dist_q_cuda",
-           "l2topk_q_ref", "l2topk_q_cuda", "pq_adc_ref", "pq_topk_ref",
-           "pq_adc_cuda", "pq_topk_cuda"]
+           "L2TOPK_Q_LAUNCHES", "L2TOPK_Q_TC_LAUNCHES", "MAX_K",
+           "l2dist_q_ref", "l2dist_q_cuda", "l2topk_q_ref", "l2topk_q_cuda",
+           "l2topk_q_fma_cuda", "l2topk_q_tc_cuda", "pq_adc_ref",
+           "pq_topk_ref", "pq_adc_cuda", "pq_topk_cuda", "takes_tensor_cores"]
 
 # launches of each CUDA kernel since import (or since a caller reset them)
 ADC_LAUNCHES = 0
 TOPK_LAUNCHES = 0
 L2DIST_Q_LAUNCHES = 0
-L2TOPK_Q_LAUNCHES = 0
+L2TOPK_Q_LAUNCHES = 0             # csrc/l2topk.cu over code rows
+L2TOPK_Q_TC_LAUNCHES = 0          # csrc/l2topk_q_tc.cu
 
 # row types of the 8-bit scans
 _CODE_DTYPES = (torch.uint8, torch.int8)
@@ -127,6 +150,16 @@ _SIGNATURES = {
     "repro_pq_topk": (ctypes.c_int, [_P] * 7 + [_I] * 8 + [_P]),
     "repro_qdist_error_string": (ctypes.c_char_p, [_I]),
 }
+_TC_SIGNATURES = {
+    "repro_l2topk_q_tc": (ctypes.c_int,
+                          [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]),
+    "repro_l2topk_q_tc_error_string": (ctypes.c_char_p, [_I]),
+}
+# the integer kernel's widest D: int32 sums of D code products stay exact
+# in float32 (below 2^24) up to 256 uint8 columns
+TC_MAX_D = 256
+# CTAs that fill the card: one per SM of the H100's 132 (800 threads)
+_TC_CTAS = 132
 
 
 def _launch_shape(luts, codes, xpad):
@@ -233,13 +266,77 @@ def l2dist_q_cuda(queries, xs, xsq=None, *, out_scale: float = 1.0):
     return out
 
 
-def l2topk_q_cuda(queries, xs, xsq=None, *, k: int = 10,
-                  out_scale: float = 1.0):
-    """Launch `csrc/l2topk.cu` over uint8 / int8 code rows on the current
-    stream; returns (dists [Bq, k] float32, ids [Bq, k] int32). k <= 64;
-    raises on any other device, dtype, shape or layout."""
+def takes_tensor_cores(queries, xs) -> bool:
+    """Whether `l2topk_q_cuda` gives these operands to the integer
+    tensor-core kernel: queries given as codes of the rows' dtype (uint8
+    or int8), D a multiple of 16 up to `TC_MAX_D` (TMA's 16-byte row
+    pitch), at least one row (a tensor map has no empty dimension) and
+    16-byte aligned bases. Code-valued float32 queries and the other
+    shapes go to the FP32-FMA kernel."""
+    d = xs.shape[-1]
+    return (xs.dtype in _CODE_DTYPES and queries.dtype == xs.dtype
+            and d % 16 == 0 and d <= TC_MAX_D and xs.shape[0] > 0
+            and queries.data_ptr() % 16 == 0 and xs.data_ptr() % 16 == 0)
+
+
+def l2topk_q_fma_cuda(queries, xs, xsq=None, *, k: int = 10,
+                      out_scale: float = 1.0):
+    """Launch `csrc/l2topk.cu` (FP32 FMAs) over uint8 / int8 code rows on
+    the current stream; returns (dists [Bq, k] float32, ids [Bq, k]
+    int32). k <= 64; raises on any other device, dtype, shape or
+    layout."""
     global L2TOPK_Q_LAUNCHES
     out = launch_fused_topk(queries, xs, xsq, k=k, out_scale=out_scale,
                             row_dtypes=_CODE_DTYPES, what="l2topk_q")
     L2TOPK_Q_LAUNCHES += 1
     return out
+
+
+def l2topk_q_tc_cuda(queries, xs, xsq=None, *, k: int = 10,
+                     out_scale: float = 1.0):
+    """Launch `csrc/l2topk_q_tc.cu` (u8 / s8 wgmma) and its split merge on
+    the current stream; returns (dists [Bq, k] float32, ids [Bq, k]
+    int32). k <= 64; raises on operands `takes_tensor_cores` refuses, as
+    `row_operands` does, and if the launch fails."""
+    global L2TOPK_Q_TC_LAUNCHES
+    _, _, _, dev = row_operands(queries, xs, xsq, _CODE_DTYPES, "l2topk_q")
+    if not takes_tensor_cores(queries, xs) or not queries.is_contiguous():
+        raise ValueError(f"l2topk_q: the tensor-core kernel takes contiguous "
+                         f"code queries of the rows' dtype, D % 16 == 0, D <= "
+                         f"{TC_MAX_D} and 16-byte aligned bases; got "
+                         f"{queries.dtype} queries, {xs.dtype} rows "
+                         f"{tuple(xs.shape)}")
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"k={k}; the l2topk_q kernel takes 1..{MAX_K}")
+    (bq, d), bx = queries.shape, xs.shape[0]
+    qsq = sqnorms(queries)
+    xsq = sqnorms(xs) if xsq is None else xsq
+    groups = -(-bq // 64)
+    splits = max(1, min(_L2TOPK_MAX_SPLITS, -(-_TC_CTAS // groups),
+                        -(-bx // 64), MERGE_CANDIDATES // k))
+    part_d = torch.empty((bq, splits, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((bq, splits, k), dtype=torch.int32, device=dev)
+    out_d = torch.empty((bq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
+    lib = _build.load("l2topk_q_tc", _TC_SIGNATURES)
+    err = lib.repro_l2topk_q_tc(
+        queries.data_ptr(), xs.data_ptr(), qsq.data_ptr(), xsq.data_ptr(),
+        part_d.data_ptr(), part_i.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), dev.index or 0, bq, bx, d,
+        ROW_DTYPES[xs.dtype], k, splits, as_f32(out_scale),
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, "repro_l2topk_q_tc_error_string", err,
+             "l2topk_q (tensor cores)")
+    L2TOPK_Q_TC_LAUNCHES += 1
+    return out_d, out_i
+
+
+def l2topk_q_cuda(queries, xs, xsq=None, *, k: int = 10,
+                  out_scale: float = 1.0):
+    """(dists [Bq, k] float32, ids [Bq, k] int32) from one of the two CUDA
+    kernels, chosen by dtype and shape: `l2topk_q_tc_cuda` where
+    `takes_tensor_cores` holds, else `l2topk_q_fma_cuda`. Raises as they
+    do."""
+    if takes_tensor_cores(queries, xs):
+        return l2topk_q_tc_cuda(queries, xs, xsq, k=k, out_scale=out_scale)
+    return l2topk_q_fma_cuda(queries, xs, xsq, k=k, out_scale=out_scale)

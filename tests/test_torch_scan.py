@@ -322,8 +322,9 @@ def test_cuda_scan_kernels_match_plain_versions(bq, bx, d, row_dtype):
         q, x = np.clip(q - 128, -127, 127), np.clip(x - 128, -127, 127)
     q, x = (t.to(dev) for t in _t(q, x))
     x = x.to(row_dtype)
-    counts = (l2dist.LAUNCHES, l2topk.LAUNCHES, qdist.L2DIST_Q_LAUNCHES,
-              qdist.L2TOPK_Q_LAUNCHES)
+    counts = (l2dist.TC_LAUNCHES, l2dist.LAUNCHES, l2topk.LAUNCHES,
+              qdist.L2DIST_Q_LAUNCHES, qdist.L2TOPK_Q_LAUNCHES)
+    tc = l2dist.takes_tensor_cores(q, x)       # by dtype and shape
     xsq = l2dist.sqnorms(x)
     xsq[bx // 2:] = float("inf")
     for metric in ("l2", "ip", "cosine"):
@@ -342,9 +343,10 @@ def test_cuda_scan_kernels_match_plain_versions(bq, bx, d, row_dtype):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     torch.cuda.synchronize()
     quant = row_dtype != torch.float32
-    assert (l2dist.LAUNCHES, l2topk.LAUNCHES, qdist.L2DIST_Q_LAUNCHES,
-            qdist.L2TOPK_Q_LAUNCHES) == (counts[0] + 3, counts[1] + 6,
-                                         counts[2] + quant, counts[3] + quant)
+    assert (l2dist.TC_LAUNCHES, l2dist.LAUNCHES, l2topk.LAUNCHES,
+            qdist.L2DIST_Q_LAUNCHES, qdist.L2TOPK_Q_LAUNCHES) == (
+        counts[0] + 3 * tc, counts[1] + 3 * (not tc), counts[2] + 6,
+        counts[3] + quant, counts[4] + quant)
 
 
 @pytest.mark.cuda
