@@ -16,12 +16,18 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                phases 3 and 4's build run; phase 4 waits for them before
                it serves, so no build competes with a timed batch.
   3. kernel  — every kernel against its plain PyTorch version on the card
-               at SIFT1M's table size, 1,000,000 rows: the layer-0
-               traversal on a seeded synthetic graph of integer-valued
-               128-d float32 rows (l2/ip/cosine) and of its uint8 and int8
-               code rows (l2), at H in {1, 4}, 256 lanes, C=72, EF=40,
-               max_hops=176, supersteps run to the end, every state tensor
-               bitwise equal after every superstep; and pq_adc / pq_topk
+               at SIFT1M's table size, 1,000,000 rows: both layer-0
+               traversal kernels (traversal_async.cu, through the
+               dispatching wrapper, and traversal.cu) on a seeded synthetic
+               graph of integer-valued 128-d float32 rows (l2/ip/cosine)
+               and of its uint8 and int8 code rows (l2), at H in {1, 4},
+               256 lanes, C=72, EF=40, max_hops=176, supersteps run to the
+               end, every state tensor bitwise equal after every superstep;
+               the same on a second graph of N_SHARED = 65,536 rows, so
+               traversal_async.cu runs with its visited bitmap in global
+               memory (1M rows) and in shared memory (65,536); its shared-
+               memory count against the Python mirror and its CTAs an SM
+               at the main path's shapes (>= 8); and pq_adc / pq_topk
                (M=16, 256 queries, k=10) over 1,000,000 random code rows
                with float-valued and integer-valued (tie-heavy) tables and
                +inf padding rows, bitwise equal.
@@ -31,22 +37,27 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                integer-valued 128-d vectors on the card, then `serve_loop`
                over 8 batches of 256 queries (k=10, ef=40) with rerank off
                and on, each after one untimed batch (the timed loop starts
-               on a warm service), the traversal launch counter reset just
-               before and read just after. Checks: recall@10 >= 0.95
-               against the exact backend on the card, launches > 0,
+               on a warm service), both traversal launch counters reset
+               just before and read just after. Checks: recall@10 >= 0.95
+               against the exact backend on the card, traversal_async.cu
+               launches > 0 and traversal.cu launches == 0,
                fused_hops=1 bitwise equal to fused_hops=4, and a CPU copy
                (saved, then loaded with device="cpu") bitwise equal to the
                card on one batch.
-  5. timing  — the traversal kernel and its plain version at the main
+  5. timing  — both traversal kernels and the plain version at the main
                path's shapes, replayed from the beam states of one
-               main-path batch; the bound is the bytes those supersteps
+               main-path batch, each bitwise equal to the plain version;
+               the kernels' device time by torch.profiler, in turns
+               (async, ldg, ldg, async), and each call's time with CUDA
+               events around it; the bound is the bytes those supersteps
                must move over the card's 3.35 TB/s.
   6. quant   — the quantized paths over the same vectors and queries,
                each index loaded onto the card from its worker's save:
                uint8 and int8 partitioned (P=4, fused_hops=4) through
                `serve_loop`, rerank off and on — uint8 ids equal to the
                float32 service's (byte data with max 255 quantizes to
-               itself), recall@10 gates, traversal launches > 0,
+               itself), recall@10 gates, traversal_async.cu launches > 0
+               and traversal.cu launches == 0,
                fused_hops=1 == 4 on every batch, a CPU copy bitwise equal
                on one batch; pq (pq_m=16, codebooks fitted by the port's
                PQQuantizer.fit and rounded to integers, so every LUT entry
@@ -160,6 +171,9 @@ INT8_OPS = 1979e12               # H100 SXM dense int8 tensor cores
 SMEM_LOOKUPS_PER_S = 32 * 132 * 1.98e9
 DEVICE = "cuda"
 N_MAIN, N_QUERIES, BATCH, PQ_M = 32768, 2048, 256, 16
+# the kernel phase's second synthetic graph: 65,536 rows, a 2,048-word
+# visited bitmap a lane, the widest traversal_async.cu keeps in shared memory
+N_SHARED = 65536
 # least share of the exact ADC scan's top-10 the PQ graph search must find
 PQ_OVERLAP_GATE = 0.90
 HNSW_M, HNSW_EFC, P_MAIN = 16, 100, 4
@@ -338,37 +352,118 @@ def live_any(state, max_hops: int) -> bool:
     return bool(((cand_d[:, 0] < fin_d[:, -1]) & (hops < max_hops)).any())
 
 
-def run_supersteps(tables, queries, qsq, metric, H, g, what: str) -> float:
-    """Kernel and plain version from one initial state to the end, bitwise
-    after every superstep; returns the max |fin_d| difference (0)."""
+def run_supersteps(tables, queries, qsq, metric, H, g, what: str) -> dict:
+    """Both traversal kernels and the plain version from one initial state
+    to the end, bitwise after every superstep: traversal_async.cu through
+    the dispatching fused_traversal_cuda (its route checked and its launches
+    counted) and traversal.cu. Returns each kernel's max |fin_d|
+    difference (0)."""
     from repro_torch.kernels import traversal as tr
 
     C, EF, MAX_HOPS = 72, 40, 176
     vec, sq, nbr = tables
+    route = tr.traversal_route(vec.dtype, vec.shape[2], nbr.shape[2], C, EF,
+                               vec.shape[1])
+    check(route[0] == "async", f"{what}: the route gives {route}")
     init = initial_state(vec, sq, queries, qsq, metric, C, EF, g)
-    sk = [t.clone() for t in init]
+    sa = [t.clone() for t in init]
+    sl = [t.clone() for t in init]
     sr = [t.clone() for t in init]
-    steps, k_ms, r_ms = 0, 0.0, 0.0
-    while live_any(sk, MAX_HOPS) or live_any(sr, MAX_HOPS):
-        k_ms += events_ms(lambda: tr.fused_traversal_cuda(
-            vec, sq, nbr, queries, qsq, *sk, fused_hops=H,
-            max_hops=MAX_HOPS, metric=metric))
+    kw = dict(fused_hops=H, max_hops=MAX_HOPS, metric=metric)
+    steps, a_ms, l_ms, r_ms = 0, 0.0, 0.0, 0.0
+    a0, l0 = tr.ASYNC_LAUNCHES, tr.LAUNCHES
+    while live_any(sa, MAX_HOPS) or live_any(sr, MAX_HOPS):
+        # the kernels in turns: the first call after the checks reads slower
+        for kernel in ("ldg", "async")[::1 - 2 * (steps % 2)]:
+            if kernel == "async":
+                a_ms += events_ms(lambda: tr.fused_traversal_cuda(
+                    vec, sq, nbr, queries, qsq, *sa, **kw))
+            else:
+                l_ms += events_ms(lambda: tr.fused_traversal_ldg_cuda(
+                    vec, sq, nbr, queries, qsq, *sl, **kw))
         r_ms += events_ms(lambda: tr.fused_traversal_ref(
-            vec, sq, nbr, queries, qsq, *sr, fused_hops=H,
-            max_hops=MAX_HOPS, metric=metric))
+            vec, sq, nbr, queries, qsq, *sr, **kw))
         steps += 1
-        for name, a, b in zip(("cand_d", "cand_i", "fin_d", "fin_i",
-                               "visited", "hops", "calcs"), sk, sr):
-            check(torch.equal(a, b),
-                  f"kernel != plain: {name} after superstep {steps} "
+        for name, a, b, c in zip(("cand_d", "cand_i", "fin_d", "fin_i",
+                                  "visited", "hops", "calcs"), sa, sl, sr):
+            check(torch.equal(a, c),
+                  f"traversal_async.cu != plain: {name} after superstep "
+                  f"{steps} ({what}, {route[1]} bitmap, {metric}, H={H})")
+            check(torch.equal(b, c),
+                  f"traversal.cu != plain: {name} after superstep {steps} "
                   f"({what}, {metric}, H={H})")
+    check((tr.ASYNC_LAUNCHES - a0, tr.LAUNCHES - l0) == (steps, steps),
+          f"{what}: launches counted on the wrong kernel")
     fin = torch.isfinite(sr[2])
-    log(f"[kernel] {what} {metric:6s} H={H}: bitwise equal over {steps} "
-        f"supersteps ({steps} kernel launches); hops mean "
-        f"{sk[5].float().mean():.1f} (max {int(sk[5].max())}), calcs mean "
-        f"{sk[6].float().mean():.1f}; kernel {k_ms / steps:.4f} "
-        f"ms/superstep, plain {r_ms / steps:.4f} ms/superstep")
-    return float((sk[2][fin] - sr[2][fin]).abs().max())
+    log(f"[kernel] {what} {metric:6s} H={H}, {route[1]} bitmap: both kernels "
+        f"bitwise equal to the plain version over {steps} supersteps; hops "
+        f"mean {sa[5].float().mean():.1f} (max {int(sa[5].max())}), calcs "
+        f"mean {sa[6].float().mean():.1f}; traversal_async {a_ms / steps:.4f}"
+        f", traversal.cu {l_ms / steps:.4f}, plain {r_ms / steps:.4f} "
+        f"ms/superstep (a call, host time included)")
+    return {"async": float((sa[2][fin] - sr[2][fin]).abs().max()),
+            "ldg": float((sl[2][fin] - sr[2][fin]).abs().max())}
+
+
+def traversal_checks(n_rows: int, seed: int) -> dict:
+    """Both traversal kernels against the plain version on a synthetic
+    graph of `n_rows` rows: float32 rows under l2 / ip / cosine and their
+    uint8 / int8 codes under l2, at H = 1 and 4. Returns the worst
+    difference by (kernel, dtype), and the graph's generator."""
+    B, D, M0 = 256, 128, 32
+    t0 = time.perf_counter()
+    vec, sq, nbr, g = synthetic_graph(n_rows, D, M0, seed)
+    queries = torch.randint(0, 256, (B, D), generator=g, device=DEVICE,
+                            dtype=torch.int32).float()
+    qsq = (queries * queries).sum(-1)
+    torch.cuda.synchronize()
+    log(f"[kernel] synthetic graph: {n_rows} rows x {D} d "
+        f"({vec.numel() * 4 / 2**20:.0f} MiB), M0_pad={M0}, bitmap "
+        f"{(n_rows + 31) // 32} words a lane, "
+        f"{time.perf_counter() - t0:.1f}s")
+    worst = {}
+
+    def keep(dtype, errs):
+        for k, e in errs.items():
+            worst[(k, dtype)] = max(worst.get((k, dtype), 0.0), e)
+
+    for metric in ("l2", "ip", "cosine"):
+        for H in (1, 4):
+            keep("float32", run_supersteps((vec, sq, nbr), queries, qsq,
+                                           metric, H, g, "float32"))
+    for dtype in ("uint8", "int8"):
+        codes, csq, qc, qcsq = code_table(vec, sq, queries, dtype)
+        for H in (1, 4):
+            keep(dtype, run_supersteps((codes, csq, nbr), qc, qcsq, "l2", H,
+                                       g, dtype))
+        del codes, csq
+    del vec, sq, nbr
+    torch.cuda.empty_cache()
+    return worst, g
+
+
+def async_layout_check() -> None:
+    """The Python mirror of traversal_async.cu's shared memory against the
+    kernel's own count, and its residency at the main path's shapes."""
+    from repro_torch.kernels import traversal as tr
+
+    for dt in (torch.float32, torch.uint8, torch.int8):
+        for shape in ((128, 32, 72, 40, 256), (128, 32, 72, 40, 0),
+                      (128, 32, 72, 40, 2048)):
+            check(tr.async_smem_bytes(dt, *shape)
+                  == tr.async_smem_bytes_cuda(dt, *shape),
+                  f"async_smem_bytes != the kernel's count at {dt}, {shape}")
+        blocks = {n: tr.async_blocks_per_sm(dt, 128, 32, 72, 40, n)
+                  for n in (8192, 1_000_000)}
+        check(min(blocks.values()) >= 8, f"traversal_async.cu {dt}: "
+                                         f"{blocks} CTAs an SM, expected 8")
+        log(f"[kernel] traversal_async {dt}: "
+            f"{tr.async_smem_bytes(dt, 128, 32, 72, 40, 256)} bytes of "
+            f"shared memory a CTA at the main path's shapes (W = 256 in "
+            f"shared memory), {blocks[8192]} CTAs an SM; "
+            f"{tr.async_smem_bytes(dt, 128, 32, 72, 40, 0)} bytes and "
+            f"{blocks[1_000_000]} CTAs an SM with the bitmap in global "
+            f"memory")
 
 
 def pq_kernel_check(n_rows: int, g) -> dict:
@@ -415,29 +510,13 @@ def pq_kernel_check(n_rows: int, g) -> dict:
 
 
 def kernel_phase(n_rows: int, seed: int) -> dict:
-    B, D, M0 = 256, 128, 32
-    t0 = time.perf_counter()
-    vec, sq, nbr, g = synthetic_graph(n_rows, D, M0, seed)
-    queries = torch.randint(0, 256, (B, D), generator=g, device=DEVICE,
-                            dtype=torch.int32).float()
-    qsq = (queries * queries).sum(-1)
-    torch.cuda.synchronize()
-    log(f"[kernel] synthetic graph: {n_rows} rows x {D} d "
-        f"({vec.numel() * 4 / 2**20:.0f} MiB), M0_pad={M0}, "
-        f"{time.perf_counter() - t0:.1f}s")
-    worst = {"float32": 0.0, "uint8": 0.0, "int8": 0.0}
-    for metric in ("l2", "ip", "cosine"):
-        for H in (1, 4):
-            worst["float32"] = max(worst["float32"], run_supersteps(
-                (vec, sq, nbr), queries, qsq, metric, H, g, "float32"))
-    for dtype in ("uint8", "int8"):
-        codes, csq, qc, qcsq = code_table(vec, sq, queries, dtype)
-        for H in (1, 4):
-            worst[dtype] = max(worst[dtype], run_supersteps(
-                (codes, csq, nbr), qc, qcsq, "l2", H, g, dtype))
-        del codes, csq
-    del vec, sq, nbr
-    torch.cuda.empty_cache()
+    """Both traversal kernels at both bitmap placements of traversal_async.cu
+    (`n_rows` rows: global memory; N_SHARED rows: shared memory), then
+    pq_adc / pq_topk."""
+    async_layout_check()
+    worst, g = traversal_checks(n_rows, seed)
+    for key, e in traversal_checks(N_SHARED, seed + 1)[0].items():
+        worst[key] = max(worst[key], e)
     worst.update(pq_kernel_check(n_rows, g))
     return worst
 
@@ -531,6 +610,21 @@ def check_cpu_copy(svc, cpu, q0, what: str, reranks=(False, True)) -> None:
         f"{' and '.join('on' if r else 'off' for r in reranks)}")
 
 
+def check_traversal_launches(what: str, n_batches: int) -> int:
+    """The traversal launches of a path's serving run (counters set to 0
+    just before it): traversal_async.cu launched, traversal.cu never."""
+    from repro_torch.kernels import traversal as tr
+
+    launches, ldg = tr.ASYNC_LAUNCHES, tr.LAUNCHES
+    # serve_paths serves n_batches + 1 (a warm-up) for each rerank setting
+    log(f"[{what}] traversal launches: traversal_async.cu {launches} "
+        f"({launches / (2 * (n_batches + 1)):.2f} per batch), traversal.cu "
+        f"{ldg}")
+    check(launches > 0, f"the {what} path launched no traversal_async.cu")
+    check(ldg == 0, f"the {what} path launched traversal.cu {ldg} times")
+    return launches
+
+
 def main_phase(svc, data, queries) -> dict:
     from repro_torch.api import IndexSpec, SearchRequest, SearchService
     from repro_torch.kernels import traversal as tr
@@ -541,13 +635,9 @@ def main_phase(svc, data, queries) -> dict:
         exact.search(SearchRequest(queries[i:i + BATCH], k=10)).ids.cpu()
         .numpy() for i in range(0, len(queries), BATCH)])
     n_batches = len(queries) // BATCH
-    tr.LAUNCHES = 0
+    tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
     ids_by = serve_paths(svc, queries, gt, "main", {False: 0.95, True: 0.95})
-    launches = tr.LAUNCHES
-    # serve_paths serves n_batches + 1 (a warm-up) for each rerank setting
-    log(f"[main] traversal launches {launches} "
-        f"({launches / (2 * (n_batches + 1)):.2f} per batch)")
-    check(launches > 0, "the main path launched no traversal kernel")
+    launches = check_traversal_launches("main", n_batches)
     check_fused_hops(svc, queries, "main")
     with tempfile.TemporaryDirectory() as tmp:
         svc.save(tmp)
@@ -563,9 +653,11 @@ def main_phase(svc, data, queries) -> dict:
 
 def timing_phase(svc, queries, what: str, reps: int = 5) -> dict:
     """Replay the layer-0 supersteps of one batch of `svc`'s main path:
-    record each superstep's input state, then time the kernel and the
-    plain version from those states (device time, CUDA events, median of
-    `reps`). `queries` are in the index's space (codes for uint8/int8)."""
+    record each superstep's input state, then run both traversal kernels
+    and the plain version from those states, bitwise, and time them: the
+    kernels' device time by torch.profiler, in turns, and every call with
+    CUDA events around it (median of `reps`). `queries` are in the index's
+    space (codes for uint8/int8)."""
     from repro_torch.core import search as cs
     from repro_torch.kernels import traversal as tr
 
@@ -608,8 +700,9 @@ def timing_phase(svc, queries, what: str, reps: int = 5) -> dict:
     args = (db.vectors, db.sqnorms, db.l0_nbrs, q, qsq)
     kw = dict(fused_hops=H, max_hops=p.max_hops, metric=p.metric)
 
-    def time_fn(fn):
-        """Median device ms per superstep, and each superstep's output."""
+    def call_ms(fn):
+        """Median ms of a call per superstep (CUDA events around it, so the
+        wrapper's host time counts), and each superstep's output."""
         per_step, outs = [], []
         for st in states:
             runs = []
@@ -619,13 +712,39 @@ def timing_phase(svc, queries, what: str, reps: int = 5) -> dict:
                 runs.append(events_ms(lambda: fn(*args, *work, **kw)))
             per_step.append(sorted(runs)[len(runs) // 2])
             outs.append(work)
-        return per_step, outs
+        return sum(per_step) / len(per_step), outs
 
-    k_ms, k_out = time_fn(tr.fused_traversal_cuda)
-    r_ms, r_out = time_fn(tr.fused_traversal_ref)
-    for i, (a, b) in enumerate(zip(k_out, r_out)):
-        check(all(torch.equal(x, y) for x, y in zip(a, b)),
-              f"{what}: kernel != plain at the path's shapes, superstep {i}")
+    def kernel_ms(fn):
+        """Device ms a superstep of fn's kernel: torch.profiler's durations
+        of the kernels named *traversal* over `reps` replays of every
+        recorded superstep (their state copies made before, not timed)."""
+        def replay():
+            works = [[t.clone() for t in st] for _ in range(reps)
+                     for st in states]
+            torch.cuda.synchronize()
+            return lambda: [fn(*args, *w, **kw) for w in works]
+
+        return profiled_ms(replay, reps * len(states), "traversal", what)
+
+    route = tr.traversal_route(db.vectors.dtype, d_pad, db.l0_nbrs.shape[-1],
+                               p.cand_size, p.ef, db.vectors.shape[1])
+    check(route == ("async", "shared"), f"{what}: the route gives {route}")
+    kernels = {"async": tr.fused_traversal_async_cuda,
+               "ldg": tr.fused_traversal_ldg_cuda}
+    calls, outs = {}, {}
+    for name, fn in (*kernels.items(), ("plain", tr.fused_traversal_ref)):
+        calls[name], outs[name] = call_ms(fn)
+    r_out = outs["plain"]
+    for name in kernels:
+        for i, (a, b) in enumerate(zip(outs[name], r_out)):
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{what}: {name} kernel != plain at the path's shapes, "
+                  f"superstep {i}")
+    # device time, the two kernels in turns within this call
+    dev = {name: [] for name in kernels}
+    for name in ("async", "ldg", "ldg", "async"):
+        dev[name].append(kernel_ms(kernels[name]))
+    dev = {name: sum(v) / len(v) for name, v in dev.items()}
     # bytes each superstep must move, from this batch's own data
     D, M0 = d_pad, db.l0_nbrs.shape[-1]
     row_bytes = D * db.vectors.element_size()
@@ -642,19 +761,24 @@ def timing_phase(svc, queries, what: str, reps: int = 5) -> dict:
         flops += dc * 2 * D
     steps = len(states)
     bound_ms = max(bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3 / steps
-    out = {"steps": steps, "ms": sum(k_ms) / steps, "plain_ms": sum(r_ms) / steps,
-           "bound_ms": bound_ms, "bytes_per_step": bytes_ / steps,
-           "lanes": L, "H": H, **split}
+    out = {"steps": steps, "ms": dev["async"], "call_ms": calls["async"],
+           "ldg_ms": dev["ldg"], "ldg_call_ms": calls["ldg"],
+           "plain_ms": calls["plain"], "bound_ms": bound_ms,
+           "bytes_per_step": bytes_ / steps, "lanes": L, "H": H, **split}
     log(f"[timing] {what} shapes: L={L} lanes (P={P} x B={B}), "
         f"N_pad={db.vectors.shape[1]}, D_pad={D} ({db.vectors.dtype}), "
-        f"M0_pad={M0}, C={C}, EF={EF}, H={H}: {steps} supersteps; kernel "
-        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
-        f"{bound_ms:.5f} ms ({out['bytes_per_step'] / 1e6:.3f} MB) per "
-        f"superstep")
+        f"M0_pad={M0}, C={C}, EF={EF}, H={H}: {steps} supersteps, both "
+        f"kernels bitwise equal to the plain version; per superstep, device "
+        f"time (profiler, in turns): traversal_async {dev['async']:.4f} ms, "
+        f"traversal.cu {dev['ldg']:.4f} ms ({dev['ldg'] / dev['async']:.2f}x)"
+        f"; a call (CUDA events, host time included): traversal_async "
+        f"{calls['async']:.4f} ms, traversal.cu {calls['ldg']:.4f} ms, plain "
+        f"{calls['plain']:.4f} ms; bound {bound_ms:.5f} ms "
+        f"({out['bytes_per_step'] / 1e6:.3f} MB)")
     log(f"[timing] {what}: one {B}-query batch, host clock: upper-layer "
         f"descent {split['upper_ms']:.3f} ms, layer-0 loop "
-        f"{split['layer0_ms']:.3f} ms ({steps} supersteps, kernel "
-        f"{sum(k_ms):.3f} ms of it)")
+        f"{split['layer0_ms']:.3f} ms ({steps} supersteps, traversal_async "
+        f"device time {steps * dev['async']:.3f} ms of it)")
     return out
 
 
@@ -679,12 +803,9 @@ def scalar_phase(path: str, dtype: str, queries, main_out) -> dict:
     exact_bytes = dtype == "uint8" and quant.scale == 1.0 \
         and quant.zero_point == 0
     gate = {False: 0.95, True: 0.95} if dtype == "uint8" else {True: 0.90}
-    tr.LAUNCHES = 0
+    tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
     ids_by = serve_paths(svc, queries, main_out["gt"], dtype, gate)
-    launches = tr.LAUNCHES
-    log(f"[{dtype}] traversal launches {launches} "
-        f"({launches / (2 * (len(queries) // BATCH + 1)):.2f} per batch)")
-    check(launches > 0, f"the {dtype} path launched no traversal kernel")
+    launches = check_traversal_launches(dtype, len(queries) // BATCH)
     if dtype == "uint8":
         if exact_bytes:
             for rerank in (False, True):
@@ -1320,6 +1441,31 @@ def device_ms(fn, reps: int = 20) -> float:
                if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
+def profiled_ms(make, calls: int, name: str, what: str,
+                tries: int = 5) -> float:
+    """Device ms a call of the kernels named *name*: torch.profiler's
+    durations over one run of make()(), which launches them `calls` times.
+    A trace that lost kernel records is taken again (torch.profiler now and
+    then reports a few of the launches), up to `tries` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        run = make()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name in e.name]
+        if len(us) == calls:
+            return sum(us) / 1e3 / calls
+        log(f"[timing] {what}: the profiler saw {len(us)} {name} kernels of "
+            f"{calls}; taking the trace again")
+    raise RuntimeError(f"chip_smoke check failed: {what}: no complete "
+                       f"trace of {calls} {name} kernels in {tries} tries")
+
+
 def log_split(what: str, s: dict) -> None:
     log(f"[lm] split of {what} (torch.profiler, device ms): flash attention "
         f"kernel {s['attention_ms']:.3f}, decode attention (plain torch) "
@@ -1868,17 +2014,24 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         lm = lm_phase(seed=0)
 
-    trav = ("src/repro_torch/kernels/csrc/traversal.cu",
-            "src/repro/kernels/traversal.py:234")
-    qsrc = "src/repro_torch/kernels/csrc/qdist.cu"
-    rows = [kernel_row("fused_traversal", *trav,
-                       main_out["launches"] if main_out else 0,
-                       kern.get("float32"), timing, "bytes")]
-    for dt in ("uint8", "int8"):
-        q = quant[dt] if quant else None
-        rows.append(kernel_row(f"fused_traversal_{dt}", *trav,
-                               q["launches"] if q else 0, kern.get(dt),
-                               q and q["timing"], "bytes"))
+    csrc = "src/repro_torch/kernels/csrc/"
+    trav = "src/repro/kernels/traversal.py:234"
+    qsrc = csrc + "qdist.cu"
+    rows = []
+    for dt in ("float32", "uint8", "int8"):
+        path = main_out if dt == "float32" else quant and quant[dt]
+        t = path and (timing if dt == "float32" else path["timing"])
+        sfx = "" if dt == "float32" else f"_{dt}"
+        rows.append(kernel_row(f"fused_traversal_async{sfx}",
+                               csrc + "traversal_async.cu", trav,
+                               path["launches"] if path else 0,
+                               kern.get(("async", dt)), t, "bytes"))
+        # the paths launch traversal.cu no time (check_traversal_launches)
+        rows.append(kernel_row(
+            f"fused_traversal{sfx}", csrc + "traversal.cu", trav, 0,
+            kern.get(("ldg", dt)),
+            t and {"ms": t["ldg_ms"], "plain_ms": t["plain_ms"],
+                   "bound_ms": t["bound_ms"]}, "bytes"))
     pq = quant["pq"] if quant else None
     for name, replaces in (("pq_topk", "src/repro/kernels/qdist.py:310"),
                            ("pq_adc", "src/repro/kernels/qdist.py:240")):
@@ -1888,7 +2041,6 @@ def main(argv=None) -> int:
         launches = pq["launches"] if pq and name == "pq_topk" else 0
         rows.append(kernel_row(name, qsrc, replaces, launches, kern.get(name),
                                t, t["bound_by"] if t else "operations"))
-    csrc = "src/repro_torch/kernels/csrc/"
     for name, source, replaces in (
             ("l2topk", "l2topk.cu", "src/repro/kernels/l2topk.py:65"),
             ("l2dist", "l2dist_tc.cu", "src/repro/kernels/l2dist.py:57"),

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention_tc.cu, l2dist_tc.cu, l2topk_q_tc.cu): mbarriers, TMA
+// (flash_attention_tc.cu, l2dist_tc.cu, l2topk_q_tc.cu) and the layer-0
+// traversal (traversal_async.cu): mbarriers, TMA bulk copies, TMA
 // loads and stores through tensor maps, wgmma shared-memory descriptors and
 // fences, named barriers, and libcuda's cuTensorMapEncodeTiled reached
 // through the runtime (no -lcuda on the nvcc line).
@@ -65,6 +66,18 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("{\n.reg .b64 state;\n"
                "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n"
                "}\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// TMA's 1-D bulk copy of `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) from global to shared memory, completing on
+// `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // One TMA box of a 2-D map at (column c, row r) into shared memory.

@@ -29,25 +29,45 @@ neighbor row are unique), so no add carries and bit 31 wraps to the right
 two's-complement pattern.
 
 `fused_traversal_ref` is the plain version: the CPU path and the yardstick
-the kernel is compared with on the card. `fused_traversal_cuda` launches
-`csrc/traversal.cu` (built by `_build.py`) and counts its launches in
-`LAUNCHES`. `ops.fused_layer0` picks one by the tensors' device.
+the kernels are compared with on the card. `fused_traversal_cuda` launches
+one of two CUDA kernels (built by `_build.py`), chosen by
+`traversal_route` from the shapes alone, never by value and never as a
+fallback (a failed build or launch raises):
+
+- `csrc/traversal_async.cu` (`fused_traversal_async_cuda`, counted in
+  `ASYNC_LAUNCHES`), the main path's: the visited bitmap in shared memory
+  where it fits, every active row gathered in one round of TMA bulk
+  copies, the next hop's neighbour list loaded while the merges run; it
+  takes M0_pad <= 32 and shapes whose CTA fits `SMEM_BUDGET`;
+- `csrc/traversal.cu` (`fused_traversal_ldg_cuda`, counted in
+  `LAUNCHES`) for the rest: rows gathered into registers 16 at a time,
+  the bitmap in global memory.
+
+Both compute the same function bitwise on integer-valued rows.
+`ops.fused_layer0` picks the plain version or `fused_traversal_cuda` by
+the tensors' device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.l2dist import raise_on
 
-__all__ = ["LAUNCHES", "METRICS", "fused_traversal_ref",
-           "fused_traversal_cuda", "layer0_hop", "merge_sorted",
-           "metric_distance", "visited_test_and_set"]
+__all__ = ["ASYNC_LAUNCHES", "LAUNCHES", "METRICS",
+           "async_blocks_per_sm", "async_smem_bytes", "async_smem_bytes_cuda",
+           "fused_traversal_ref", "fused_traversal_async_cuda",
+           "fused_traversal_cuda", "fused_traversal_ldg_cuda", "layer0_hop",
+           "merge_sorted", "metric_distance", "traversal_route",
+           "visited_test_and_set"]
 
-# launches of the CUDA kernel since import (or since a caller reset it)
-LAUNCHES = 0
+# launches of each CUDA kernel since import (or since a caller reset them)
+LAUNCHES = 0                      # csrc/traversal.cu
+ASYNC_LAUNCHES = 0                # csrc/traversal_async.cu
 
 METRICS = {"l2": 0, "ip": 1, "cosine": 2}
 
@@ -186,19 +206,76 @@ def fused_traversal_ref(vectors, sqnorms, l0_nbrs, queries, qsq,
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel's wrapper
+# The CUDA kernels' wrappers and the route between them
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# row dtype -> the C entry point of its instantiation
-_ENTRY = {torch.float32: "repro_fused_traversal_f32",
-          torch.uint8: "repro_fused_traversal_u8",
-          torch.int8: "repro_fused_traversal_i8"}
-_SIGNATURES = {
+# row dtype -> each kernel's C entry point for it
+_LDG_ENTRY = {torch.float32: "repro_fused_traversal_f32",
+              torch.uint8: "repro_fused_traversal_u8",
+              torch.int8: "repro_fused_traversal_i8"}
+_ASYNC_ENTRY = {torch.float32: "repro_traversal_async_f32",
+                torch.uint8: "repro_traversal_async_u8",
+                torch.int8: "repro_traversal_async_i8"}
+_DTYPE_CODE = {torch.float32: 0, torch.uint8: 1, torch.int8: 2}
+_LDG_SIGNATURES = {
     **{fn: (ctypes.c_int, [_P] * 12 + [_I] * 12 + [_P])
-       for fn in _ENTRY.values()},
+       for fn in _LDG_ENTRY.values()},
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
+_ASYNC_SIGNATURES = {
+    **{fn: (ctypes.c_int, [_P] * 12 + [_I] * 13 + [_P])
+       for fn in _ASYNC_ENTRY.values()},
+    "repro_traversal_async_smem_bytes": (ctypes.c_int, [_I] * 6),
+    "repro_traversal_async_blocks_per_sm": (ctypes.c_int, [_I] * 7),
+    "repro_traversal_async_error_string": (ctypes.c_char_p, [_I]),
+}
+
+# csrc/traversal_async.cu: a lane of warp 0 a neighbour, so M0_pad <= 32;
+# 8 CTAs an SM (L = 1,024 lanes in one wave on 132 SMs), so a CTA's shared
+# memory stays within an eighth of an SM's 228 KB less the 1 KB the card
+# reserves for each CTA
+ASYNC_MAX_M0 = 32
+SMEM_BUDGET = 233_472 // 8 - 1024           # 28,160 bytes
+# the widest visited bitmap kept in shared memory: 8 KB, 65,536 rows
+MAX_SHARED_BITMAP_WORDS = 2048
+
+
+def async_smem_bytes(dtype, d_pad: int, m0_pad: int, C: int, EF: int,
+                     w_smem: int) -> int:
+    """Dynamic shared memory of a `csrc/traversal_async.cu` launch, as its
+    `layout` counts it: the mbarrier (16), M0_pad staged rows, the float32
+    query, the batch's 32 slots (distance, id, sqnorm, row id), the
+    candidate and final lists twice, and `w_smem` bitmap words (0 when the
+    bitmap stays in global memory)."""
+    return (16 + m0_pad * d_pad * dtype.itemsize + 4 * d_pad
+            + 16 * ASYNC_MAX_M0 + 16 * C + 16 * EF + 4 * w_smem)
+
+
+@functools.lru_cache(maxsize=None)
+def traversal_route(dtype, d_pad: int, m0_pad: int, C: int, EF: int,
+                    n_pad: int) -> tuple[str, str]:
+    """(kernel, bitmap placement) that `fused_traversal_cuda` launches for
+    these shapes, by shape alone:
+
+    - ("async", "shared"): `csrc/traversal_async.cu` with the visited
+      bitmap in shared memory, where W = ceil(N_pad / 32) <=
+      `MAX_SHARED_BITMAP_WORDS` and the CTA, bitmap included, stays within
+      `SMEM_BUDGET` (the main path: W = 256, float32 20,240 bytes);
+    - ("async", "global"): the same kernel with the bitmap in global
+      memory, where only the bitmap does not fit (1M-row tables);
+    - ("ldg", "global"): `csrc/traversal.cu` for every other shape (M0_pad
+      > 32; staged rows past the budget, e.g. float32 D_pad >= 256 at
+      M0_pad = 32), which raises on what it cannot take either."""
+    w = (n_pad + 31) // 32
+    if (dtype in _ASYNC_ENTRY and d_pad > 0 and d_pad % 128 == 0
+            and 0 < m0_pad <= ASYNC_MAX_M0 and 0 < EF <= C):
+        if w <= MAX_SHARED_BITMAP_WORDS and async_smem_bytes(
+                dtype, d_pad, m0_pad, C, EF, w) <= SMEM_BUDGET:
+            return "async", "shared"
+        if async_smem_bytes(dtype, d_pad, m0_pad, C, EF, 0) <= SMEM_BUDGET:
+            return "async", "global"
+    return "ldg", "global"
 
 
 def _check(name, t, dtype, shape, device):
@@ -213,40 +290,33 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def fused_traversal_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
-                         cand_d, cand_i, fin_d, fin_i, visited, hops, calcs,
-                         *, fused_hops: int, max_hops: int,
-                         metric: str = "l2"):
-    """Launch `csrc/traversal.cu` on the current stream (in place).
-
-    Takes float32, uint8 or int8 rows with D_pad % 128 == 0, M0_pad <= 128,
-    C <= 256 and EF <= C; raises on any other device, dtype, shape or
-    layout."""
-    global LAUNCHES
-    dev = vectors.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_traversal_cuda needs CUDA tensors, got {dev}")
+def _shapes(vectors, l0_nbrs, queries, cand_d, fin_d):
+    """(P, N_pad, D_pad, M0_pad, B, L, C, EF) of a launch."""
     if vectors.dim() != 3:
         raise ValueError("vectors must be partition-stacked [P, N_pad, D_pad]")
     P, N, D = vectors.shape
-    M0 = l0_nbrs.shape[-1]
-    B = queries.shape[0]
     L, C = cand_d.shape
-    EF = fin_d.shape[-1]
-    W = (N + 31) // 32
-    if D % 128 or not 0 < M0 <= MAX_M0 or not 0 < C <= MAX_C \
-            or not 0 < EF <= C or L != P * B:
-        raise ValueError(
-            f"unsupported shapes: D_pad={D} (multiple of 128), M0_pad={M0} "
-            f"(<= {MAX_M0}), C={C} (<= {MAX_C}), EF={EF} (<= C), "
-            f"L={L} (== P*B = {P * B})")
+    return P, N, D, l0_nbrs.shape[-1], queries.shape[0], L, C, fin_d.shape[-1]
+
+
+def _operands(entries, vectors, sqnorms, l0_nbrs, queries, qsq, cand_d,
+              cand_i, fin_d, fin_i, visited, hops, calcs, *, fused_hops,
+              metric, what):
+    """Check a launch's operands; returns (device, shapes) or raises."""
+    dev = vectors.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
+    P, N, D, M0, B, L, C, EF = shape = _shapes(vectors, l0_nbrs, queries,
+                                               cand_d, fin_d)
+    if L != P * B:
+        raise ValueError(f"L={L} lanes, expected P*B = {P * B}")
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     if fused_hops < 1:
         raise ValueError("fused_hops must be >= 1")
-    if vectors.dtype not in _ENTRY:
+    if vectors.dtype not in entries:
         raise TypeError(f"vectors has dtype {vectors.dtype}; the kernel "
-                        f"takes {sorted(map(str, _ENTRY))}")
+                        f"takes {sorted(map(str, entries))}")
     f32, i32 = torch.float32, torch.int32
     _check("vectors", vectors, vectors.dtype, (P, N, D), dev)
     _check("sqnorms", sqnorms, f32, (P, N), dev)
@@ -257,23 +327,119 @@ def fused_traversal_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
     _check("cand_i", cand_i, i32, (L, C), dev)
     _check("fin_d", fin_d, f32, (L, EF), dev)
     _check("fin_i", fin_i, i32, (L, EF), dev)
-    _check("visited", visited, i32, (L, W), dev)
+    _check("visited", visited, i32, (L, (N + 31) // 32), dev)
     _check("hops", hops, i32, (L,), dev)
     _check("calcs", calcs, i32, (L,), dev)
     if vectors.data_ptr() % 16 or queries.data_ptr() % 16:
         raise ValueError("vectors and queries must be 16-byte aligned")
-    lib = _build.load("traversal", _SIGNATURES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, _ENTRY[vectors.dtype])(
+    return dev, shape
+
+
+def fused_traversal_ldg_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
+                             cand_d, cand_i, fin_d, fin_i, visited, hops,
+                             calcs, *, fused_hops: int, max_hops: int,
+                             metric: str = "l2"):
+    """Launch `csrc/traversal.cu` on the current stream (in place), counted
+    in `LAUNCHES`: rows gathered into registers 16 at a time, the bitmap
+    in global memory.
+
+    Takes float32, uint8 or int8 rows with D_pad % 128 == 0, M0_pad <= 128,
+    C <= 256 and EF <= C; raises on any other device, dtype, shape or
+    layout."""
+    global LAUNCHES
+    dev, (P, N, D, M0, B, L, C, EF) = _operands(
+        _LDG_ENTRY, vectors, sqnorms, l0_nbrs, queries, qsq, cand_d, cand_i,
+        fin_d, fin_i, visited, hops, calcs, fused_hops=fused_hops,
+        metric=metric, what="fused_traversal_ldg_cuda")
+    if D % 128 or not 0 < M0 <= MAX_M0 or not 0 < C <= MAX_C \
+            or not 0 < EF <= C:
+        raise ValueError(
+            f"unsupported shapes: D_pad={D} (multiple of 128), M0_pad={M0} "
+            f"(<= {MAX_M0}), C={C} (<= {MAX_C}), EF={EF} (<= C)")
+    lib = _build.load("traversal", _LDG_SIGNATURES)
+    err = getattr(lib, _LDG_ENTRY[vectors.dtype])(
         vectors.data_ptr(), sqnorms.data_ptr(), l0_nbrs.data_ptr(),
         queries.data_ptr(), qsq.data_ptr(), cand_d.data_ptr(),
         cand_i.data_ptr(), fin_d.data_ptr(), fin_i.data_ptr(),
         visited.data_ptr(), hops.data_ptr(), calcs.data_ptr(),
-        dev.index or 0, L, B, N, D, M0, C, EF, W, fused_hops, max_hops,
-        METRICS[metric], stream)
-    if err != 0:
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused traversal launch failed: CUDA error "
-                           f"{err} ({msg})")
+        dev.index or 0, L, B, N, D, M0, C, EF, (N + 31) // 32, fused_hops,
+        max_hops, METRICS[metric], torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, "repro_cuda_error_string", err, "fused traversal")
     LAUNCHES += 1
     return cand_d, cand_i, fin_d, fin_i, visited, hops, calcs
+
+
+def fused_traversal_async_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
+                               cand_d, cand_i, fin_d, fin_i, visited, hops,
+                               calcs, *, fused_hops: int, max_hops: int,
+                               metric: str = "l2"):
+    """Launch `csrc/traversal_async.cu` on the current stream (in place),
+    counted in `ASYNC_LAUNCHES`, with the bitmap where `traversal_route`
+    places it. Raises on shapes the route gives to `traversal.cu`, on any
+    other device, dtype, shape or layout, and if the launch fails."""
+    global ASYNC_LAUNCHES
+    dev, (P, N, D, M0, B, L, C, EF) = _operands(
+        _ASYNC_ENTRY, vectors, sqnorms, l0_nbrs, queries, qsq, cand_d,
+        cand_i, fin_d, fin_i, visited, hops, calcs, fused_hops=fused_hops,
+        metric=metric, what="fused_traversal_async_cuda")
+    kernel, bitmap = traversal_route(vectors.dtype, D, M0, C, EF, N)
+    if kernel != "async":
+        raise ValueError(
+            f"traversal_async.cu does not take D_pad={D}, M0_pad={M0}, "
+            f"C={C}, EF={EF} for {vectors.dtype} rows (M0_pad <= "
+            f"{ASYNC_MAX_M0}, D_pad % 128 == 0, {SMEM_BUDGET} bytes of "
+            f"shared memory a CTA)")
+    lib = _build.load("traversal_async", _ASYNC_SIGNATURES)
+    err = getattr(lib, _ASYNC_ENTRY[vectors.dtype])(
+        vectors.data_ptr(), sqnorms.data_ptr(), l0_nbrs.data_ptr(),
+        queries.data_ptr(), qsq.data_ptr(), cand_d.data_ptr(),
+        cand_i.data_ptr(), fin_d.data_ptr(), fin_i.data_ptr(),
+        visited.data_ptr(), hops.data_ptr(), calcs.data_ptr(),
+        dev.index or 0, L, B, N, D, M0, C, EF, (N + 31) // 32, fused_hops,
+        max_hops, METRICS[metric], int(bitmap == "shared"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, "repro_traversal_async_error_string", err,
+              "fused traversal (async)")
+    ASYNC_LAUNCHES += 1
+    return cand_d, cand_i, fin_d, fin_i, visited, hops, calcs
+
+
+def fused_traversal_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
+                         cand_d, cand_i, fin_d, fin_i, visited, hops, calcs,
+                         *, fused_hops: int, max_hops: int,
+                         metric: str = "l2"):
+    """One superstep on the card (in place) by the kernel `traversal_route`
+    picks from the shapes: `fused_traversal_async_cuda` or
+    `fused_traversal_ldg_cuda`. Never a fallback: either raises on what it
+    cannot take or if its launch fails."""
+    P, N, D, M0, B, L, C, EF = _shapes(vectors, l0_nbrs, queries, cand_d,
+                                       fin_d)
+    kernel, _ = traversal_route(vectors.dtype, D, M0, C, EF, N)
+    fn = fused_traversal_async_cuda if kernel == "async" \
+        else fused_traversal_ldg_cuda
+    return fn(vectors, sqnorms, l0_nbrs, queries, qsq, cand_d, cand_i,
+              fin_d, fin_i, visited, hops, calcs, fused_hops=fused_hops,
+              max_hops=max_hops, metric=metric)
+
+
+def async_smem_bytes_cuda(dtype, d_pad: int, m0_pad: int, C: int, EF: int,
+                          w_smem: int) -> int:
+    """The kernel's own count of `async_smem_bytes` (builds it first)."""
+    lib = _build.load("traversal_async", _ASYNC_SIGNATURES)
+    return lib.repro_traversal_async_smem_bytes(
+        d_pad * dtype.itemsize, d_pad, m0_pad, C, EF, w_smem)
+
+
+def async_blocks_per_sm(dtype, d_pad: int, m0_pad: int, C: int, EF: int,
+                        n_pad: int) -> int:
+    """CTAs of `csrc/traversal_async.cu` resident on one SM at these shapes
+    and the route's bitmap placement (CUDA's occupancy calculator)."""
+    _, bitmap = traversal_route(dtype, d_pad, m0_pad, C, EF, n_pad)
+    lib = _build.load("traversal_async", _ASYNC_SIGNATURES)
+    n = lib.repro_traversal_async_blocks_per_sm(
+        _DTYPE_CODE[dtype], d_pad, m0_pad, C, EF, (n_pad + 31) // 32,
+        int(bitmap == "shared"))
+    if n < 0:
+        raise_on(lib, "repro_traversal_async_error_string", -n,
+                  "occupancy query")
+    return n

@@ -8,8 +8,10 @@ are integer-valued float32 rows (0..255, d=32), so every dot product and
 every ||x||^2 - 2 x.q + ||q||^2 is an exact integer below 2^24 and the
 two summation orders cannot part. Bitmaps are compared as uint32.
 
-The CUDA kernel against the plain version runs only where there is a
-card (the `cuda` marker); here it skips.
+The CUDA kernels against the plain version and each other run only where
+there is a card (the `cuda` marker); here they skip. Which kernel a shape
+takes (`traversal_route`) and the new kernel's shared-memory count are
+pure functions of shapes and are checked here.
 """
 
 import numpy as np
@@ -44,6 +46,17 @@ def odd_db():
     g = thg.build_hnsw(v, thg.HNSWConfig(M=4, ef_construction=32))
     db = thg.restructure(g, n_pad=2040)
     assert db.vectors.shape[0] % 32 != 0
+    return thg.DeviceDB(*(np.stack([a]) for a in db))
+
+
+@pytest.fixture(scope="module")
+def wide_db():
+    """One graph padded to 65,540 rows: W = ceil(65540/32) = 2049 bitmap
+    words, one past the largest bitmap kept in shared memory, and a partial
+    last word."""
+    v = np.rint(clustered_vectors(300, 32, 12, seed=5))
+    g = thg.build_hnsw(v, thg.HNSWConfig(M=4, ef_construction=32))
+    db = thg.restructure(g, n_pad=65540)
     return thg.DeviceDB(*(np.stack([a]) for a in db))
 
 
@@ -140,6 +153,17 @@ def test_odd_pad_bitmap_matches_reference(odd_db):
     _run_both(odd_db, "l2", 1, MAX_HOPS, seed=1)
 
 
+def test_odd_pad_above_the_shared_bitmap_threshold_matches_reference(wide_db):
+    """65,540 rows: the bitmap (2049 words) is one word past what the new
+    kernel keeps in shared memory, so the card takes its global
+    placement; the plain version stays bitwise equal to the reference."""
+    assert bitmap_words(65540) == tr.MAX_SHARED_BITMAP_WORDS + 1
+    M0 = wide_db.l0_nbrs.shape[-1]
+    assert tr.traversal_route(torch.float32, wide_db.vectors.shape[-1], M0,
+                              EF + M0, EF, 65540) == ("async", "global")
+    _run_both(wide_db, "l2", 4, MAX_HOPS, seed=3)
+
+
 def test_max_hops_reached_mid_superstep(pdb):
     """max_hops=5 at H=2: lanes stop in the middle of the third superstep
     and stay frozen after it."""
@@ -202,6 +226,136 @@ def test_cpu_tensors_take_the_plain_version(pdb, monkeypatch):
         tr.fused_traversal_cuda(*args, fused_hops=2, max_hops=MAX_HOPS)
 
 
+F32, U8, I8 = torch.float32, torch.uint8, torch.int8
+SHARED, GLOBAL, LDG = ("async", "shared"), ("async", "global"), ("ldg",
+                                                                  "global")
+
+
+@pytest.mark.parametrize("dtype,d_pad,m0_pad,C,EF,n_pad,route", [
+    # the main path's shapes (P=4 partitions of 8,192 rows, M=16, ef=40)
+    (F32, 128, 32, 72, 40, 8192, SHARED),
+    (U8, 128, 32, 72, 40, 8192, SHARED),
+    (I8, 128, 32, 72, 40, 8192, SHARED),
+    # N_pad: 65,536 rows (W = 2048 words) keep the bitmap in shared memory,
+    # one row more goes to global memory, as do 1M-row tables
+    (F32, 128, 32, 72, 40, 65536, SHARED),
+    (F32, 128, 32, 72, 40, 65537, GLOBAL),
+    (U8, 128, 32, 72, 40, 65537, GLOBAL),
+    (F32, 128, 32, 72, 40, 1_000_000, GLOBAL),
+    # C: beside an 8 KB bitmap, 119 fits the 28,160-byte budget, 120 not;
+    # without the bitmap, 631 fits and 632 goes to traversal.cu
+    (F32, 128, 32, 119, 40, 65536, SHARED),
+    (F32, 128, 32, 120, 40, 65536, GLOBAL),
+    (F32, 128, 32, 631, 40, 1_000_000, GLOBAL),
+    (F32, 128, 32, 632, 40, 1_000_000, LDG),
+    # M0_pad: a lane of warp 0 a neighbour, 32 at most
+    (U8, 128, 24, 64, 40, 8192, SHARED),
+    (F32, 128, 40, 80, 40, 8192, LDG),
+    # D_pad and dtype: 32 staged float32 rows of 256 take 32 KB, past the
+    # budget; 8-bit rows of 512 take 16 KB and stay
+    (F32, 256, 32, 72, 40, 8192, LDG),
+    (U8, 512, 32, 72, 40, 8192, SHARED),
+    (I8, 512, 32, 72, 40, 8192, SHARED),
+    (U8, 1024, 32, 72, 40, 8192, LDG),
+    (F32, 64, 32, 72, 40, 8192, LDG),          # D_pad % 128 != 0
+    (torch.float64, 128, 32, 72, 40, 8192, LDG),
+    (F32, 128, 32, 40, 41, 8192, LDG),         # EF > C
+])
+def test_route_rule(dtype, d_pad, m0_pad, C, EF, n_pad, route):
+    """The kernel and bitmap placement on each side of each threshold."""
+    assert tr.traversal_route(dtype, d_pad, m0_pad, C, EF, n_pad) == route
+
+
+@pytest.mark.parametrize("dtype,want", [(F32, 20_240), (U8, 7_952),
+                                        (I8, 7_952)])
+def test_shared_memory_at_the_path_shapes_fits_eight_ctas(dtype, want):
+    """The Python mirror of the kernel's shared-memory layout at the main
+    path's shapes (D_pad 128, M0_pad 32, C 72, EF 40, W 256): 8 CTAs an
+    SM, each with the card's 1 KB reservation, fit its 228 KB."""
+    got = tr.async_smem_bytes(dtype, 128, 32, 72, 40, 256)
+    assert got == want
+    assert got <= tr.SMEM_BUDGET and 8 * (got + 1024) <= 228 * 1024
+    # the widest shared bitmap still fits beside float32 rows
+    assert 8 * (tr.async_smem_bytes(F32, 128, 32, 72, 40, 2048)
+                + 1024) <= 228 * 1024
+
+
+def test_cuda_wrapper_routes_by_shape(pdb, monkeypatch):
+    """fused_traversal_cuda hands each shape to the route's kernel, on
+    shapes alone (the launchers are stubbed: no card here)."""
+    calls = []
+    for name in ("fused_traversal_async_cuda", "fused_traversal_ldg_cuda"):
+        monkeypatch.setattr(tr, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
+    q, qsq, state = _beam_state(pdb.db, "l2", 0)
+    tables = [torch.from_numpy(np.ascontiguousarray(getattr(pdb.db, f)))
+              for f in ("vectors", "sqnorms", "l0_nbrs")]
+    args = (*tables, torch.from_numpy(q), torch.from_numpy(qsq),
+            *_to_torch(state))
+    tr.fused_traversal_cuda(*args, fused_hops=2, max_hops=MAX_HOPS)
+    # float32 rows of 1,024: 8 staged rows take 32 KB, past the budget
+    wide = torch.zeros((2, 320, 1024))
+    tr.fused_traversal_cuda(wide, *args[1:], fused_hops=2, max_hops=MAX_HOPS)
+    assert calls == ["fused_traversal_async_cuda", "fused_traversal_ldg_cuda"]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("H", [1, 4])
+@pytest.mark.parametrize("which", ["pdb", "wide_db"])
+def test_async_kernel_matches_plain_and_ldg(request, which, H, metric):
+    """On a card: traversal_async.cu at both bitmap placements (320 rows:
+    shared memory; 65,540 rows: global memory) equals the plain version
+    and traversal.cu bitwise after every superstep, each launch on its
+    own counter."""
+    dev = _card()
+    db = request.getfixturevalue(which)
+    db = db.db if which == "pdb" else db
+    tables = [torch.from_numpy(np.ascontiguousarray(getattr(db, f))).to(dev)
+              for f in ("vectors", "sqnorms", "l0_nbrs")]
+    P, N, D = db.vectors.shape
+    M0 = db.l0_nbrs.shape[-1]
+    want = SHARED if which == "pdb" else GLOBAL
+    assert tr.traversal_route(F32, D, M0, EF + M0, EF, N) == want
+    q, qsq, state = _beam_state(db, metric, 0)
+    tq, tqsq = torch.from_numpy(q).to(dev), torch.from_numpy(qsq).to(dev)
+    sa = [t.to(dev) for t in _to_torch(state)]
+    sl, sr = [t.clone() for t in sa], [t.clone() for t in sa]
+    a0, l0 = tr.ASYNC_LAUNCHES, tr.LAUNCHES
+    steps = 0
+    kw = dict(fused_hops=H, max_hops=MAX_HOPS, metric=metric)
+    while _live(sr, MAX_HOPS):
+        tr.fused_traversal_cuda(*tables, tq, tqsq, *sa, **kw)
+        tr.fused_traversal_ldg_cuda(*tables, tq, tqsq, *sl, **kw)
+        tr.fused_traversal_ref(*tables, tq, tqsq, *sr, **kw)
+        torch.cuda.synchronize()
+        steps += 1
+        for a, b, c in zip(sa, sl, sr):
+            assert torch.equal(a, c) and torch.equal(b, c)
+    assert steps >= 2
+    assert (tr.ASYNC_LAUNCHES - a0, tr.LAUNCHES - l0) == (steps, steps)
+
+
+@pytest.mark.cuda
+def test_async_shared_memory_count_matches_the_kernel():
+    """On a card: the Python mirror equals the kernel's own layout count,
+    and the path's shapes keep 8 CTAs resident on an SM."""
+    _card()
+    for dt in (F32, U8, I8):
+        for shape in ((128, 32, 72, 40, 256), (128, 32, 72, 40, 0),
+                      (512, 24, 100, 60, 2048)):
+            assert tr.async_smem_bytes(dt, *shape) == \
+                tr.async_smem_bytes_cuda(dt, *shape)
+        assert tr.async_blocks_per_sm(dt, 128, 32, 72, 40, 8192) >= 8
+        assert tr.async_blocks_per_sm(dt, 128, 32, 72, 40, 1_000_000) >= 8
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
 def test_cuda_kernel_matches_plain_version(pdb, metric):
@@ -216,7 +370,7 @@ def test_cuda_kernel_matches_plain_version(pdb, metric):
     tq, tqsq = torch.from_numpy(q).to(dev), torch.from_numpy(qsq).to(dev)
     sk = [t.to(dev) for t in _to_torch(state)]
     sr = [t.clone() for t in sk]
-    launches = tr.LAUNCHES
+    launches = tr.ASYNC_LAUNCHES, tr.LAUNCHES
     while _live(sr, MAX_HOPS):
         tr.fused_traversal_cuda(*tables, tq, tqsq, *sk, fused_hops=4,
                                 max_hops=MAX_HOPS, metric=metric)
@@ -225,4 +379,5 @@ def test_cuda_kernel_matches_plain_version(pdb, metric):
         torch.cuda.synchronize()
         for a, b in zip(sk, sr):
             assert torch.equal(a, b)
-    assert tr.LAUNCHES > launches
+    # these shapes take traversal_async.cu, with the bitmap in shared memory
+    assert tr.ASYNC_LAUNCHES > launches[0] and tr.LAUNCHES == launches[1]
