@@ -80,27 +80,28 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                batches of 256, k=10. Every batch goes through ops.l2topk,
                ops.l2topk_q on both code tables, ops.l2dist and
                ops.l2dist_q, the launch counters reset just before and read
-               just after: l2dist and l2topk_q must launch their
-               tensor-core kernels (l2dist_tc.cu, l2topk_q_tc.cu) and
-               their FMA routes never. Checks: l2topk ids and dists
-               bitwise equal to core/bruteforce.py's bruteforce_topk on
-               every batch; uint8 l2topk_q equal to l2topk; int8 l2topk_q
-               (out_scale = (255/127)^2) bitwise equal to its plain
-               version; l2dist / l2dist_q at the top-k ids equal the top-k
-               dists. Then every kernel, both routes of l2dist and
-               l2topk_q, against its plain version at 256 x 1M, with and
+               just after: all four must launch their tensor-core kernels
+               (l2topk_tc.cu, l2topk_q_tc.cu, l2dist_tc.cu,
+               l2dist_q_tc.cu) and their FMA routes never. Checks: l2topk
+               ids and dists bitwise equal to core/bruteforce.py's
+               bruteforce_topk on every batch; uint8 l2topk_q equal to
+               l2topk; int8 l2topk_q (out_scale = (255/127)^2) bitwise
+               equal to its plain version; l2dist / l2dist_q at the top-k
+               ids equal the top-k dists. Then both routes of every
+               kernel against its plain version at 256 x 1M, with and
                without 16 xsq=+inf pad rows: bitwise on the integer rows
-               and codes (l2dist on l2, ip and cosine; l2topk_q at k = 1,
-               10 and 64, the FMA route given code-valued float32
-               queries), within SCAN_TOL on unit-norm rows (cosine) and
-               Gaussian rows (l2, ip); ragged shapes (Bq = 3, Bx = 70,000,
-               D = 128 / 48 on the tensor cores; D = 200 and Bx = 70,001 on
+               and codes (l2dist on l2, ip and cosine; l2topk and l2topk_q
+               at k = 1, 10 and 64; l2dist_q on uint8 and int8 codes; the
+               l2topk_q FMA route given code-valued float32 queries),
+               within SCAN_TOL on unit-norm rows (cosine) and Gaussian
+               rows (l2dist on l2 and ip, l2topk); ragged shapes (Bq = 3,
+               Bx = 70,000, D = 128 / 48 on the tensor cores, l2topk also
+               Bx = 70,001; D = 200, and Bx = 70,001 for the matrices, on
                the FMA kernels) through the dispatching wrappers, each on
                the counter its route names; and each timed (median of 5)
                beside its plain version, a library yardstick (torch.addmm,
                then torch.topk for the fused scans; timed only) and its
-               bound, the two routes of l2dist and l2topk_q on the same
-               inputs.
+               bound, the two routes of each kernel on the same inputs.
   8. lm      — the LM substrate, last, after torch.cuda.empty_cache():
                deepseek-v2-lite-16b at full width and depth (27 layers, d
                2048, 16 MLA heads, 64 experts top-6, vocab 102,400; 15.7 B
@@ -1005,7 +1006,9 @@ def scan_counts() -> dict:
     from repro_torch.kernels import qdist as qd
 
     return {"l2dist": ld.TC_LAUNCHES, "l2dist_fma": ld.LAUNCHES,
-            "l2topk": lt.LAUNCHES, "l2dist_q": qd.L2DIST_Q_LAUNCHES,
+            "l2topk": lt.TC_LAUNCHES, "l2topk_fma": lt.LAUNCHES,
+            "l2dist_q": qd.L2DIST_Q_TC_LAUNCHES,
+            "l2dist_q_fma": qd.L2DIST_Q_LAUNCHES,
             "l2topk_q": qd.L2TOPK_Q_TC_LAUNCHES,
             "l2topk_q_fma": qd.L2TOPK_Q_LAUNCHES}
 
@@ -1014,8 +1017,9 @@ def reset_scan_counts() -> None:
     from repro_torch.kernels import l2dist as ld, l2topk as lt
     from repro_torch.kernels import qdist as qd
 
-    ld.TC_LAUNCHES = ld.LAUNCHES = lt.LAUNCHES = 0
-    qd.L2DIST_Q_LAUNCHES = qd.L2TOPK_Q_TC_LAUNCHES = qd.L2TOPK_Q_LAUNCHES = 0
+    ld.TC_LAUNCHES = ld.LAUNCHES = lt.TC_LAUNCHES = lt.LAUNCHES = 0
+    qd.L2DIST_Q_TC_LAUNCHES = qd.L2DIST_Q_LAUNCHES = 0
+    qd.L2TOPK_Q_TC_LAUNCHES = qd.L2TOPK_Q_LAUNCHES = 0
 
 
 def scan_path(tabs) -> dict:
@@ -1065,12 +1069,12 @@ def max_err(got, want) -> float:
 
 
 def scan_kernel_checks(tabs, g) -> dict:
-    """Every exact-scan kernel, both routes of l2dist and l2topk_q, against
-    its plain version at 256 x 1M: bitwise on the integer rows and codes,
-    with and without 16 pad rows (l2topk_q at k = 1, 10 and 64); within
-    SCAN_TOL on unit-norm rows (cosine) and Gaussian rows (l2, ip); and
-    the ragged shapes each route takes or leaves by shape. Returns each
-    kernel row's largest |kernel - plain|."""
+    """Both routes of every exact-scan kernel against its plain version at
+    256 x 1M: bitwise on the integer rows and codes, with and without 16
+    pad rows (l2topk and l2topk_q at k = 1, 10 and 64); within SCAN_TOL on
+    unit-norm rows (cosine) and Gaussian rows (l2dist on l2 and ip,
+    l2topk); and the ragged shapes each route takes or leaves by shape.
+    Returns each kernel row's largest |kernel - plain|."""
     from repro_torch.kernels import l2dist as ld, l2topk as lt
     from repro_torch.kernels import qdist as qd
 
@@ -1093,9 +1097,13 @@ def scan_kernel_checks(tabs, g) -> dict:
         held("l2dist", tag, ld.l2dist_tc_cuda(q, x, xs), want)
         held("l2dist_fma", tag, ld.l2dist_fma_cuda(q, x, xs), want)
         del want
-        held("l2topk", f"{BATCH} x {N_SCAN} x 128, float32 (xsq pads="
-                       f"{xs is not None})", lt.l2topk_cuda(q, x, xs, k=SCAN_K),
-             lt.l2topk_ref(q, x, xs, k=SCAN_K))
+        for k in (1, SCAN_K, 64):
+            tag = (f"{BATCH} x {N_SCAN} x 128, float32 (xsq pads="
+                   f"{xs is not None}), k={k}")
+            want = lt.l2topk_ref(q, x, xs, k=k)
+            held("l2topk", tag, lt.l2topk_tc_cuda(q, x, xs, k=k), want)
+            held("l2topk_fma", tag, lt.l2topk_fma_cuda(q, x, xs, k=k), want)
+            del want
     for metric in ("ip", "cosine"):
         want = ld.l2dist_ref(q, x, metric=metric)
         held("l2dist", f"{BATCH} x {N_SCAN} x 128, {metric}",
@@ -1109,8 +1117,12 @@ def scan_kernel_checks(tabs, g) -> dict:
         cpad = torch.where(torch.isinf(pad), pad, csq)
         for xs in (None, cpad):
             tag = f"{BATCH} x {N_SCAN} x 128, {dt} (xsq pads={xs is not None})"
-            held("l2dist_q", tag, qd.l2dist_q_cuda(qc, c, xs, out_scale=scale),
-                 qd.l2dist_q_ref(qc, c, xs, out_scale=scale))
+            want = qd.l2dist_q_ref(qc, c, xs, out_scale=scale)
+            held("l2dist_q", tag, qd.l2dist_q_tc_cuda(qc, c, xs,
+                                                      out_scale=scale), want)
+            held("l2dist_q_fma", tag, qd.l2dist_q_fma_cuda(
+                qc, c, xs, out_scale=scale), want)
+            del want
             for k in (1, SCAN_K, 64):
                 want = qd.l2topk_q_ref(qc, c, xs, k=k, out_scale=scale)
                 held("l2topk_q", f"{tag}, k={k}",
@@ -1144,22 +1156,24 @@ def scan_kernel_checks(tabs, g) -> dict:
         del want
         if metric != "l2":
             continue
-        (gv, gi), (wv, wi) = lt.l2topk_cuda(qs, xs, k=SCAN_K), \
-            lt.l2topk_ref(qs, xs, k=SCAN_K + 1)
+        wv, wi = lt.l2topk_ref(qs, xs, k=SCAN_K + 1)
         row_tol = tol.max(1).values[:, None]
-        check(bool(((gv - wv[:, :SCAN_K]).abs() <= row_tol).all()),
-              f"l2topk on {what} rows beyond the tolerance")
         # ids may differ only where the k-th and (k+1)-th are within tol
         clear = (wv[:, SCAN_K] - wv[:, SCAN_K - 1]) > 2 * row_tol[:, 0]
-        same_ids = (torch.sort(gi, 1).values
-                    == torch.sort(wi[:, :SCAN_K], 1).values).all(1)
-        check(bool(same_ids[clear].all()),
-              f"l2topk on {what} rows: other ids away from a near-tie")
-        err["l2topk"] = max(err["l2topk"],
+        for name, fn in (("l2topk", lt.l2topk_tc_cuda),
+                         ("l2topk_fma", lt.l2topk_fma_cuda)):
+            gv, gi = fn(qs, xs, k=SCAN_K)
+            check(bool(((gv - wv[:, :SCAN_K]).abs() <= row_tol).all()),
+                  f"{name} on {what} rows beyond the tolerance")
+            same_ids = (torch.sort(gi, 1).values
+                        == torch.sort(wi[:, :SCAN_K], 1).values).all(1)
+            check(bool(same_ids[clear].all()),
+                  f"{name} on {what} rows: other ids away from a near-tie")
+            err[name] = max(err[name],
                             float((gv - wv[:, :SCAN_K]).abs().max()))
-        log(f"[scan] l2topk on {what} rows: dists within the tolerance, ids "
-            f"equal on {int(same_ids.sum())}/{BATCH} queries "
-            f"({int(clear.sum())} clear of a near-tie)")
+            log(f"[scan] {name} on {what} rows: dists within the tolerance, "
+                f"ids equal on {int(same_ids.sum())}/{BATCH} queries "
+                f"({int(clear.sum())} clear of a near-tie)")
         del tol
     del gx, gq
     torch.cuda.empty_cache()
@@ -1169,64 +1183,76 @@ def scan_kernel_checks(tabs, g) -> dict:
 def scan_ragged_checks(tabs, err) -> None:
     """The dispatching wrappers at shapes off the main path's: Bq = 3 and
     Bx = 70,000 (not a multiple of 64) at D = 128 and 48, which the
-    tensor-core kernels take, and D = 200 (l2dist also Bx = 70,001), which
-    they leave to the FMA kernels; bitwise against the plain versions, and
-    each launch on the counter its route names."""
-    from repro_torch.kernels import l2dist as ld
+    tensor-core kernels take (l2topk also Bx = 70,001: it stores no
+    [Bq, Bx] matrix), and D = 200 and, for l2dist and l2dist_q, Bx =
+    70,001, which they leave to the FMA kernels; bitwise against the plain
+    versions, and each launch on the counter its route names."""
+    from repro_torch.kernels import l2dist as ld, l2topk as lt
     from repro_torch.kernels import qdist as qd
 
-    x, q, _, _ = tabs["float32"]
-    cases = [("l2dist", 70_000, 128), ("l2dist", 70_000, 48),
-             ("l2dist_fma", 70_000, 200), ("l2dist_fma", 70_001, 128)]
-    for name, bx, d in cases:
-        xs = (x[:bx, :d] if d <= 128 else
-              torch.cat([x[:bx], x[:bx, :d - 128]], 1)).contiguous()
-        qs = (q[:3, :d] if d <= 128 else
-              torch.cat([q[:3], q[:3, :d - 128]], 1)).contiguous()
+    def cut(t, n, d):
+        """t's first n rows at width d (columns repeated past 128)."""
+        return (t[:n, :d] if d <= 128 else
+                torch.cat([t[:n], t[:n, :d - 128]], 1)).contiguous()
+
+    def held(name, what, calls):
+        """calls() runs one route: a list of (kernel, plain) results."""
         before = scan_counts()
-        for metric in ("l2", "ip"):
-            got, want = ld.l2dist_cuda(qs, xs, metric=metric), ld.l2dist_ref(
-                qs, xs, metric=metric)
-            check(same(got, want), f"l2dist_cuda != plain at 3 x {bx} x {d}, "
-                                   f"{metric}")
+        pairs = calls()
+        for got, want in pairs:
+            check(same(got, want), f"{what} != plain")
             err[name] = max(err[name], max_err(got, want))
+        n = len(pairs)
         torch.cuda.synchronize()
-        moved = {n: v - before[n] for n, v in scan_counts().items() if
-                 v != before[n]}
-        check(moved == {name: 2}, f"l2dist_cuda at 3 x {bx} x {d} launched "
-                                  f"{moved}, expected {{{name!r}: 2}}")
-        log(f"[scan] l2dist_cuda 3 x {bx} x {d}: bitwise equal to its plain "
-            f"version, on {name}")
+        moved = {k: v - before[k] for k, v in scan_counts().items() if
+                 v != before[k]}
+        check(moved == {name: n}, f"{what} launched {moved}, expected "
+                                  f"{{{name!r}: {n}}}")
+        log(f"[scan] {what}: bitwise equal to its plain version, on {name}")
+
+    x, q, _, _ = tabs["float32"]
+    for name, bx, d in (("l2dist", 70_000, 128), ("l2dist", 70_000, 48),
+                        ("l2dist_fma", 70_000, 200),
+                        ("l2dist_fma", 70_001, 128)):
+        xs, qs = cut(x, bx, d), cut(q, 3, d)
+        held(name, f"l2dist_cuda 3 x {bx} x {d}, l2 and ip",
+             lambda: [(ld.l2dist_cuda(qs, xs, metric=m),
+                       ld.l2dist_ref(qs, xs, metric=m)) for m in ("l2", "ip")])
+    for name, bx, d in (("l2topk", 70_000, 128), ("l2topk", 70_000, 48),
+                        ("l2topk", 70_001, 128), ("l2topk_fma", 70_000, 200)):
+        xs, qs = cut(x, bx, d), cut(q, 3, d)
+        held(name, f"l2topk_cuda 3 x {bx} x {d}, k = 1, {SCAN_K}, 64",
+             lambda: [(lt.l2topk_cuda(qs, xs, k=k), lt.l2topk_ref(qs, xs, k=k))
+                      for k in (1, SCAN_K, 64)])
     for dt in ("uint8", "int8"):
         c, qc, scale, _ = tabs[dt]
-        for name, d in (("l2topk_q", 128), ("l2topk_q", 48),
-                        ("l2topk_q_fma", 200)):
-            cs = (c[:70_000, :d] if d <= 128 else
-                  torch.cat([c[:70_000], c[:70_000, :d - 128]], 1)).contiguous()
-            qs = (qc[:3, :d] if d <= 128 else
-                  torch.cat([qc[:3], qc[:3, :d - 128]], 1)).contiguous()
-            before = scan_counts()
-            for k in (1, SCAN_K, 64):
-                got = qd.l2topk_q_cuda(qs, cs, k=k, out_scale=scale)
-                want = qd.l2topk_q_ref(qs, cs, k=k, out_scale=scale)
-                check(same(got, want), f"l2topk_q_cuda != plain at 3 x 70000 "
-                                       f"x {d}, {dt}, k={k}")
-                err[name] = max(err[name], max_err(got, want))
-            torch.cuda.synchronize()
-            moved = {n: v - before[n] for n, v in scan_counts().items() if
-                     v != before[n]}
-            check(moved == {name: 3}, f"l2topk_q_cuda at 3 x 70000 x {d} "
-                                      f"({dt}) launched {moved}")
-            log(f"[scan] l2topk_q_cuda 3 x 70000 x {d}, {dt} codes, k = 1, "
-                f"{SCAN_K}, 64: bitwise equal to its plain version, on {name}")
+        for name, bx, d in (("l2topk_q", 70_000, 128),
+                            ("l2topk_q", 70_000, 48),
+                            ("l2topk_q_fma", 70_000, 200)):
+            cs, qs = cut(c, bx, d), cut(qc, 3, d)
+            held(name, f"l2topk_q_cuda 3 x {bx} x {d}, {dt} codes, k = 1, "
+                       f"{SCAN_K}, 64",
+                 lambda: [(qd.l2topk_q_cuda(qs, cs, k=k, out_scale=scale),
+                           qd.l2topk_q_ref(qs, cs, k=k, out_scale=scale))
+                          for k in (1, SCAN_K, 64)])
+        for name, bx, d in (("l2dist_q", 70_000, 128),
+                            ("l2dist_q", 70_000, 48),
+                            ("l2dist_q_fma", 70_001, 128),
+                            ("l2dist_q_fma", 70_000, 200)):
+            cs, qs = cut(c, bx, d), cut(qc, 3, d)
+            held(name, f"l2dist_q_cuda 3 x {bx} x {d}, {dt} codes",
+                 lambda: [(qd.l2dist_q_cuda(qs, cs, out_scale=scale),
+                           qd.l2dist_q_ref(qs, cs, out_scale=scale))])
 
 
 def scan_timing(tabs, reps: int = 5) -> dict:
     """Each kernel, its plain version and its library yardstick (one
     torch.addmm, then torch.topk for the fused scans; codes cast to float32
-    before timing) at 256 x 1M x 128, device ms as the median of `reps`;
-    the tensor-core and FMA routes of l2dist and l2topk_q on the same
-    inputs, in the same call. Bounds at the units each kernel uses: FP32
+    before timing) at 256 x 1M x 128, ms as the median of `reps` by CUDA
+    events around a call, and each kernel's device ms by torch.profiler
+    (`device_ms`: the wrapper's host time left out); the tensor-core and
+    FMA routes of each kernel on the same inputs, in the same call, and
+    compared by device ms. Bounds at the units each kernel uses: FP32
     FMAs, TF32 (3 products) or int8 tensor cores."""
     from repro_torch.kernels import l2dist as ld, l2topk as lt
     from repro_torch.kernels import qdist as qd
@@ -1253,11 +1279,18 @@ def scan_timing(tabs, reps: int = 5) -> dict:
                     ("l2dist_fma", lambda: ld.l2dist_fma_cuda(q, x, xsq),
                      lambda: ld.l2dist_ref(q, x, xsq), dist_lib, dist_out,
                      ops_, FP32_FLOPS),
-                    ("l2topk", lambda: lt.l2topk_cuda(q, x, xsq, k=SCAN_K),
+                    ("l2topk", lambda: lt.l2topk_tc_cuda(q, x, xsq, k=SCAN_K),
+                     lambda: lt.l2topk_ref(q, x, xsq, k=SCAN_K), topk_lib,
+                     topk_out, 3 * ops_, TF32_FLOPS),
+                    ("l2topk_fma", lambda: lt.l2topk_fma_cuda(q, x, xsq,
+                                                              k=SCAN_K),
                      lambda: lt.l2topk_ref(q, x, xsq, k=SCAN_K), topk_lib,
                      topk_out, ops_, FP32_FLOPS))
         elif dt == "uint8":
-            rows = (("l2dist_q", lambda: qd.l2dist_q_cuda(q, x, xsq),
+            rows = (("l2dist_q", lambda: qd.l2dist_q_tc_cuda(q, x, xsq),
+                     lambda: qd.l2dist_q_ref(q, x, xsq), dist_lib, dist_out,
+                     ops_, INT8_OPS),
+                    ("l2dist_q_fma", lambda: qd.l2dist_q_fma_cuda(q, x, xsq),
                      lambda: qd.l2dist_q_ref(q, x, xsq), dist_lib, dist_out,
                      ops_, INT8_OPS),
                     ("l2topk_q", lambda: qd.l2topk_q_tc_cuda(q, x, xsq,
@@ -1269,7 +1302,10 @@ def scan_timing(tabs, reps: int = 5) -> dict:
                      lambda: qd.l2topk_q_ref(q, x, xsq, k=SCAN_K), topk_lib,
                      topk_out, ops_, INT8_OPS))
         else:
-            rows = (("l2topk_q_int8", lambda: qd.l2topk_q_tc_cuda(
+            rows = (("l2dist_q_int8", lambda: qd.l2dist_q_tc_cuda(q, x, xsq),
+                     lambda: qd.l2dist_q_ref(q, x, xsq), dist_lib, dist_out,
+                     ops_, INT8_OPS),
+                    ("l2topk_q_int8", lambda: qd.l2topk_q_tc_cuda(
                 q, x, xsq, k=SCAN_K),
                      lambda: qd.l2topk_q_ref(q, x, xsq, k=SCAN_K), topk_lib,
                      topk_out, ops_, INT8_OPS),
@@ -1279,24 +1315,29 @@ def scan_timing(tabs, reps: int = 5) -> dict:
                      topk_out, ops_, INT8_OPS))
         for name, kf, pf, lf, ob, n_ops, peak in rows:
             b_ms, b_by = bound(in_bytes + ob, n_ops, peak)
-            t = {"ms": median_ms(kf, reps), "plain_ms": median_ms(pf, reps),
+            t = {"ms": median_ms(kf, reps), "device_ms": device_ms(kf),
+                 "plain_ms": median_ms(pf, reps),
                  "library_ms": median_ms(lf, reps), "bound_ms": b_ms,
                  "bound_by": b_by}
             out[name] = t
             unit = "GFLOP" if dt == "float32" else "GOP"
             log(f"[scan] timing {name} ({dt} rows, {bq} x {bx} x {d}"
                 f"{f', k={SCAN_K}' if 'topk' in name else ''}): kernel "
-                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}), plain "
+                f"{t['plain_ms']:.4f} ms, library "
                 f"{t['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
                 f"{(in_bytes + ob) / 1e6:.1f} MB, {n_ops / 1e9:.1f} {unit} at "
                 f"{peak / 1e12:.0f} T/s)")
             torch.cuda.empty_cache()
         del xf, qf
-    for fast, slow in (("l2dist", "l2dist_fma"), ("l2topk_q", "l2topk_q_fma"),
+    for fast, slow in (("l2topk", "l2topk_fma"), ("l2dist", "l2dist_fma"),
+                       ("l2dist_q", "l2dist_q_fma"),
+                       ("l2topk_q", "l2topk_q_fma"),
                        ("l2topk_q_int8", "l2topk_q_fma_int8")):
-        log(f"[scan] {fast} (tensor cores) {out[fast]['ms']:.4f} ms against "
-            f"the FMA route's {out[slow]['ms']:.4f} ms: "
-            f"{out[slow]['ms'] / out[fast]['ms']:.2f}x; library "
+        log(f"[scan] {fast} (tensor cores) device {out[fast]['device_ms']:.4f}"
+            f" ms against the FMA route's {out[slow]['device_ms']:.4f} ms: "
+            f"{out[slow]['device_ms'] / out[fast]['device_ms']:.2f}x (events "
+            f"{out[fast]['ms']:.4f} / {out[slow]['ms']:.4f} ms); library "
             f"{out[fast]['library_ms']:.4f} ms")
     return out
 
@@ -1322,11 +1363,11 @@ def scan_phase(seed: int) -> dict:
         f"{max(path['batch_ms']):.3f} ms")
     n_batches = N_QUERIES // BATCH
     check(launches == {"l2dist": n_batches, "l2dist_fma": 0,
-                       "l2topk": n_batches, "l2dist_q": n_batches,
+                       "l2topk": n_batches, "l2topk_fma": 0,
+                       "l2dist_q": n_batches, "l2dist_q_fma": 0,
                        "l2topk_q": 2 * n_batches, "l2topk_q_fma": 0},
-          f"the scan path's launches {launches}: expected every l2dist and "
-          f"l2topk_q launch on the tensor-core kernels, none on their FMA "
-          f"routes")
+          f"the scan path's launches {launches}: expected every launch on "
+          f"the tensor-core kernels, none on their FMA routes")
     x, q, _, xsq = tabs["float32"]
     i8, qi8, s8, i8sq = tabs["int8"]
     for i, b in enumerate(range(0, N_QUERIES, BATCH)):
@@ -2042,10 +2083,12 @@ def main(argv=None) -> int:
         rows.append(kernel_row(name, qsrc, replaces, launches, kern.get(name),
                                t, t["bound_by"] if t else "operations"))
     for name, source, replaces in (
-            ("l2topk", "l2topk.cu", "src/repro/kernels/l2topk.py:65"),
+            ("l2topk", "l2topk_tc.cu", "src/repro/kernels/l2topk.py:65"),
+            ("l2topk_fma", "l2topk.cu", "src/repro/kernels/l2topk.py:65"),
             ("l2dist", "l2dist_tc.cu", "src/repro/kernels/l2dist.py:57"),
             ("l2dist_fma", "l2dist.cu", "src/repro/kernels/l2dist.py:57"),
-            ("l2dist_q", "l2dist.cu", "src/repro/kernels/qdist.py:77"),
+            ("l2dist_q", "l2dist_q_tc.cu", "src/repro/kernels/qdist.py:77"),
+            ("l2dist_q_fma", "l2dist.cu", "src/repro/kernels/qdist.py:77"),
             ("l2topk_q", "l2topk_q_tc.cu", "src/repro/kernels/qdist.py:158"),
             ("l2topk_q_fma", "l2topk.cu", "src/repro/kernels/qdist.py:158")):
         sc = scan[name] if scan else None

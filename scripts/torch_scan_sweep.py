@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Sweep the PyTorch port's fused exact scan (`l2topk`) over its row
-splits and k on one NVIDIA card, and split its device time between its
-two launches.
+"""Sweep the PyTorch port's FP32-FMA fused exact scan (`l2topk`'s
+`csrc/l2topk.cu`) over its row splits and k on one NVIDIA card, and split
+its device time between its two launches.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
@@ -9,11 +9,11 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 Over 1,000,000 x 128 integer-valued float32 rows and 256 queries (seeded),
 it calls `csrc/l2topk.cu` through its C entry with the split count forced
-to 32, 64 and 128 at k = 1, 10 and 64, then as the wrapper chooses, and
-prints each device time (CUDA events, median of 5). Then `l2dist` at the
-same shapes, and a `torch.profiler` split of one wrapper call between the
-per-split pass and the merge. The wrapper's split rule in
-`kernels/l2topk.py` is read off this sweep.
+to 32, 64 and 128 at k = 1, 10 and 64, then as its wrapper
+(`l2topk_fma_cuda`) chooses, and prints each device time (CUDA events,
+median of 5). Then `l2dist` at the same shapes, and a `torch.profiler`
+split of one wrapper call between the per-split pass and the merge. The
+FMA kernel's split rule in `kernels/l2topk.py` is read off this sweep.
 """
 
 from __future__ import annotations
@@ -86,17 +86,17 @@ def main() -> int:
         for splits in (32, 64, 128):
             print(f"l2topk {BQ} x {N} x {D}, k={k}, splits={splits}: "
                   f"{median_ms(forced(k, splits)):.3f} ms", flush=True)
+        wrapper = median_ms(lambda: lt.l2topk_fma_cuda(q, x, xsq, k=k))
         print(f"l2topk {BQ} x {N} x {D}, k={k}, the wrapper's splits: "
-              f"{median_ms(lambda: lt.l2topk_cuda(q, x, xsq, k=k)):.3f} ms",
-              flush=True)
+              f"{wrapper:.3f} ms", flush=True)
     print(f"l2dist {BQ} x {N} x {D}: "
           f"{median_ms(lambda: ld.l2dist_cuda(q, x, xsq)):.3f} ms")
-    lt.l2topk_cuda(q, x, xsq, k=10)
+    lt.l2topk_fma_cuda(q, x, xsq, k=10)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
-            lt.l2topk_cuda(q, x, xsq, k=10)
+            lt.l2topk_fma_cuda(q, x, xsq, k=10)
         torch.cuda.synchronize()
     for ev in prof.key_averages():
         if ev.device_time_total > 0:

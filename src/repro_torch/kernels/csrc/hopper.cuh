@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention_tc.cu, l2dist_tc.cu, l2topk_q_tc.cu) and the layer-0
-// traversal (traversal_async.cu): mbarriers, TMA bulk copies, TMA
-// loads and stores through tensor maps, wgmma shared-memory descriptors and
-// fences, named barriers, and libcuda's cuTensorMapEncodeTiled reached
-// through the runtime (no -lcuda on the nvcc line).
+// (flash_attention_tc.cu and the exact scans l2dist_tc.cu, l2topk_tc.cu,
+// l2dist_q_tc.cu, l2topk_q_tc.cu) and the layer-0 traversal
+// (traversal_async.cu): mbarriers, TMA bulk copies, TMA loads and stores
+// through tensor maps, wgmma shared-memory descriptors, fences and the
+// scans' m64n64 products (3 x TF32 pieces, u8 / s8), named barriers, and
+// libcuda's cuTensorMapEncodeTiled reached through the runtime (no -lcuda
+// on the nvcc line).
 //
 // Every swizzled operand here uses the 128-byte swizzle: TMA writes a box
 // whose rows are 128 bytes, and the 16-byte chunk c of row r lands at chunk
@@ -117,6 +119,10 @@ __device__ __forceinline__ void bulk_commit() {
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
+// Every committed store but the newest has read its shared memory.
+__device__ __forceinline__ void bulk_wait_read_but_newest() {
+  asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+}
 // The committed stores are complete.
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
@@ -174,8 +180,55 @@ __device__ __forceinline__ void fence_regs(int (&d)[32]) {
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
   "%28, %29, %30, %31}"
 
+// The bits of a float32 that the TF32 units read: hi = x & 0xffffe000.
+// x - hi (the lo piece) is exact in float32, and 0 on integers up to 2048.
+__device__ __forceinline__ uint32_t tf32_hi(float x) {
+  return __float_as_uint(x) & 0xffffe000u;
+}
+
+// d[64 x 64] (+)= A[64 x 8] . B[64 x 8]^T in TF32: A from registers (the
+// m64k8 fragment), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " HOPPER_D32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : HOPPER_D32("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 32] . B[64 x 32]^T over 8-bit codes into s32,
+// both K-major in shared memory: .u8.u8 for uint8, .s8.s8 for int8.
+template <typename T>
+__device__ __forceinline__ void wgmma_i8(int (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_i8<uint8_t>(int (&d)[32], uint64_t da,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 " HOPPER_D32_LIST
+      ", %32, %33, p;\n}\n"
+      : HOPPER_D32("+r")
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_i8<int8_t>(int (&d)[32], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " HOPPER_D32_LIST
+      ", %32, %33, p;\n}\n"
+      : HOPPER_D32("+r")
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // Error codes beside cudaError_t's
-constexpr int kNoEncoder = -1, kEncodeFailed = -2;
+constexpr int kNoEncoder = -1, kEncodeFailed = -2, kRegisterBudget = -3;
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -226,6 +279,9 @@ inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem,
 inline const char* error_string(int err) {
   if (err == kNoEncoder) return "cuTensorMapEncodeTiled not found in libcuda";
   if (err == kEncodeFailed) return "cuTensorMapEncodeTiled refused a tensor map";
+  if (err == kRegisterBudget)
+    return "the kernel's registers at launch differ from what its setmaxnreg "
+           "assumes";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -86,27 +86,10 @@ struct Smem {
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-// d[64 x 64] (+)= A[64 x 8] . B[64 x 8]^T in TF32: A from registers (the
-// m64k8 fragment), B K-major in shared memory.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " HOPPER_D32_LIST
-      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : HOPPER_D32("+f")
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
 // The ring stage of a CTA's tile i: warpgroup i % 2 consumes it, and its
 // tiles take its two stages in turn.
 __device__ __forceinline__ int stage(int i) {
   return i % kConsumers + kConsumers * ((i / kConsumers) % 2);
-}
-
-__device__ __forceinline__ uint32_t tf32_hi(float x) {
-  return __float_as_uint(x) & 0xffffe000u;
 }
 
 template <int NB>

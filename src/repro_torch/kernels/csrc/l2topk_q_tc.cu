@@ -102,34 +102,6 @@ __device__ __forceinline__ int stage(int i) {
   return i % kMma + kMma * ((i / kMma) % (kStages / kMma));
 }
 
-// d[64 x 64] (+)= A[64 x 32] . B[64 x 32]^T over 8-bit codes into s32,
-// both K-major in shared memory.
-template <typename T>
-__device__ __forceinline__ void wgmma_i8(int (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_i8<uint8_t>(int (&d)[32], uint64_t da,
-                                                  uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 " HOPPER_D32_LIST
-      ", %32, %33, p;\n}\n"
-      : HOPPER_D32("+r")
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_i8<int8_t>(int (&d)[32], uint64_t da,
-                                                 uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " HOPPER_D32_LIST
-      ", %32, %33, p;\n}\n"
-      : HOPPER_D32("+r")
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
 template <typename T, int NB>
 __global__ void __launch_bounds__(kThreads, 1)
 l2topk_q_tc_kernel(const __grid_constant__ CUtensorMap tm_q,   // [Bq, D]

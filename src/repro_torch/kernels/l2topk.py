@@ -19,10 +19,25 @@ finite slots agree. The kernel takes 1 <= k <= 64 and raises above it;
 the plain version takes any k.
 
 `l2topk_ref` is the plain version: the CPU path and the yardstick the
-kernel is compared with on the card (a float32 `q @ x.T` per chunk of
-rows, TF32 off, then a stable sort). `l2topk_cuda` launches
-`csrc/l2topk.cu` (built by `_build.py`) and counts its launches in
-`LAUNCHES`. `ops.l2topk` picks one by the tensors' device.
+kernels are compared with on the card (a float32 `q @ x.T` per chunk of
+rows, TF32 off, then a stable sort). `l2topk_cuda` launches one of two
+CUDA kernels (built by `_build.py`), chosen by dtype and shape:
+
+- `csrc/l2topk_tc.cu`, 3 x TF32 on the tensor cores (wgmma, TMA) with
+  selection warps beside the products, for float32 queries and rows with
+  D a multiple of 4 up to 128, at least one row, and contiguous operands
+  with 16-byte aligned bases (`takes_tensor_cores`). `l2topk_tc_cuda`
+  launches it and counts in `TC_LAUNCHES`. Its split of each float32
+  into two TF32 pieces (`l2dist.tf32_split`) keeps integer-valued rows up
+  to 2048 exact, so it equals the plain version bitwise there; on float
+  data its distances are within 3e-6 * (qsq + xsq) of the exact ones.
+- `csrc/l2topk.cu`, FP32 FMAs, for 8-bit rows and the float32 shapes the
+  tensor-core kernel refuses. `l2topk_fma_cuda` launches it and counts
+  in `LAUNCHES`.
+
+This is a choice by shape, not a fallback: a failed build or launch of
+either raises. `ops.l2topk` picks the plain version or `l2topk_cuda` by
+the tensors' device.
 """
 
 from __future__ import annotations
@@ -41,10 +56,13 @@ from repro_torch.kernels.l2dist import (
 )
 
 __all__ = ["LAUNCHES", "MAX_K", "MAX_SPLITS", "MERGE_CANDIDATES",
-           "fused_topk_ref", "launch_fused_topk", "l2topk_ref", "l2topk_cuda"]
+           "TC_LAUNCHES", "TC_MAX_D", "fused_topk_ref", "launch_fused_topk",
+           "l2topk_ref", "l2topk_cuda", "l2topk_fma_cuda", "l2topk_tc_cuda",
+           "splits_for", "takes_tensor_cores"]
 
-# launches of the CUDA kernel since import (or since a caller reset it)
-LAUNCHES = 0
+# launches of each CUDA kernel since import (or since a caller reset them)
+LAUNCHES = 0                      # csrc/l2topk.cu (FP32 FMAs)
+TC_LAUNCHES = 0                   # csrc/l2topk_tc.cu (3 x TF32)
 
 # shape limits of csrc/l2topk.cu: k per query and splits of the rows
 MAX_K, MAX_SPLITS = 64, 128
@@ -59,6 +77,13 @@ MERGE_CANDIDATES = 2048
 # rows a plain version takes at once: a [Bq, 65536] float32 tile
 _CHUNK = 1 << 16
 _INF = float("inf")
+# the tensor-core kernel's widest D: the queries' two pieces, a 4-stage
+# row ring and two distance tiles at 128 columns take 230,760 bytes of
+# shared memory
+TC_MAX_D = 128
+# CTAs that fill the card with the tensor-core kernel: one per SM of the
+# H100's 132 (896 threads, 225 KB of shared memory)
+_TC_CTAS = 132
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +141,21 @@ _SIGNATURES = {
 }
 
 
+_TC_SIGNATURES = {
+    "repro_l2topk_tc": (ctypes.c_int, [_P] * 8 + [_I] * 6 + [_P]),
+    "repro_l2topk_tc_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+def splits_for(bq: int, bx: int, k: int, ctas: int) -> int:
+    """Row splits of a fused scan: enough CTAs of 64 queries to fill the
+    card (`ctas`), at most one a 64-row tile, at most MAX_SPLITS, and at
+    most MERGE_CANDIDATES candidates a query for the merge."""
+    groups = max(-(-bq // _QBLOCK), 1)
+    return max(1, min(MAX_SPLITS, -(-ctas // groups), -(-bx // _TILE),
+                      MERGE_CANDIDATES // k))
+
+
 def launch_fused_topk(queries, xs, xsq, *, k: int, out_scale: float | None,
                       row_dtypes, what: str):
     """Launch `csrc/l2topk.cu`'s two passes on the current stream; returns
@@ -127,9 +167,7 @@ def launch_fused_topk(queries, xs, xsq, *, k: int, out_scale: float | None,
     (bq, d), bx = q.shape, xs.shape[0]
     qsq = sqnorms(q)
     xsq = sqnorms(xs) if xsq is None else xsq
-    groups = -(-bq // _QBLOCK)
-    splits = max(1, min(MAX_SPLITS, -(-_CTAS // max(groups, 1)),
-                        -(-bx // _TILE), MERGE_CANDIDATES // k))
+    splits = splits_for(bq, bx, k, _CTAS)
     part_d = torch.empty((bq, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((bq, splits, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((bq, k), dtype=torch.float32, device=dev)
@@ -146,12 +184,71 @@ def launch_fused_topk(queries, xs, xsq, *, k: int, out_scale: float | None,
     return out_d, out_i
 
 
-def l2topk_cuda(queries, xs, xsq=None, *, k: int = 10):
-    """Launch `csrc/l2topk.cu` on the current stream over float32, uint8 or
-    int8 rows: (dists [Bq, k] float32, ids [Bq, k] int32). k <= 64; raises
-    on any other device, dtype, shape or layout."""
+def takes_tensor_cores(queries, xs) -> bool:
+    """Whether `l2topk_cuda` gives these operands to the tensor-core
+    kernel: float32 queries and rows, D a multiple of 4 up to `TC_MAX_D`
+    (TMA's 16-byte row pitch), at least one row (a tensor map has no empty
+    dimension), and contiguous operands with 16-byte aligned bases. No
+    rule on Bx: the kernel stores no [Bq, Bx] output, only each query's k
+    best. Everything else goes to the FP32-FMA kernel."""
+    d = xs.shape[-1]
+    return (queries.dtype == torch.float32 and xs.dtype == torch.float32
+            and d % 4 == 0 and d <= TC_MAX_D and xs.shape[0] > 0
+            and queries.is_contiguous() and xs.is_contiguous()
+            and queries.data_ptr() % 16 == 0 and xs.data_ptr() % 16 == 0)
+
+
+def l2topk_fma_cuda(queries, xs, xsq=None, *, k: int = 10):
+    """Launch `csrc/l2topk.cu` (FP32 FMAs) on the current stream over
+    float32, uint8 or int8 rows: (dists [Bq, k] float32, ids [Bq, k]
+    int32). k <= 64; raises on any other device, dtype, shape or
+    layout."""
     global LAUNCHES
     out = launch_fused_topk(queries, xs, xsq, k=k, out_scale=None,
                             row_dtypes=ROW_DTYPES, what="l2topk")
     LAUNCHES += 1
     return out
+
+
+def l2topk_tc_cuda(queries, xs, xsq=None, *, k: int = 10):
+    """Launch `csrc/l2topk_tc.cu` (3 x TF32 on the tensor cores) and its
+    split merge on the current stream: (dists [Bq, k] float32, ids [Bq, k]
+    int32). k <= 64; raises on operands `takes_tensor_cores` refuses, as
+    `row_operands` does, and if the launch fails."""
+    global TC_LAUNCHES
+    _, _, _, dev = row_operands(queries, xs, xsq, (torch.float32,), "l2topk")
+    if not takes_tensor_cores(queries, xs):
+        raise ValueError(f"l2topk: the tensor-core kernel takes contiguous "
+                         f"float32 queries and rows with D % 4 == 0, D <= "
+                         f"{TC_MAX_D}, at least one row and 16-byte aligned "
+                         f"bases; got {queries.dtype} queries, rows "
+                         f"{tuple(xs.shape)}")
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"k={k}; the l2topk kernel takes 1..{MAX_K}")
+    (bq, d), bx = queries.shape, xs.shape[0]
+    qsq = sqnorms(queries)
+    xsq = sqnorms(xs) if xsq is None else xsq
+    splits = splits_for(bq, bx, k, _TC_CTAS)
+    part_d = torch.empty((bq, splits, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((bq, splits, k), dtype=torch.int32, device=dev)
+    out_d = torch.empty((bq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
+    lib = _build.load("l2topk_tc", _TC_SIGNATURES)
+    err = lib.repro_l2topk_tc(
+        queries.data_ptr(), xs.data_ptr(), qsq.data_ptr(), xsq.data_ptr(),
+        part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), dev.index or 0, bq, bx, d, k, splits,
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, "repro_l2topk_tc_error_string", err, "l2topk (tensor cores)")
+    TC_LAUNCHES += 1
+    return out_d, out_i
+
+
+def l2topk_cuda(queries, xs, xsq=None, *, k: int = 10):
+    """(dists [Bq, k] float32, ids [Bq, k] int32) from one of the two CUDA
+    kernels, chosen by dtype and shape: `l2topk_tc_cuda` where
+    `takes_tensor_cores` holds, else `l2topk_fma_cuda`. Raises as they
+    do."""
+    if takes_tensor_cores(queries, xs):
+        return l2topk_tc_cuda(queries, xs, xsq, k=k)
+    return l2topk_fma_cuda(queries, xs, xsq, k=k)

@@ -84,11 +84,13 @@ def l2topk(queries, xs, xsq=None, *, k: int = 10):
     return _pick(xs, l2topk_cuda, l2topk_ref, "l2topk")(queries, xs, xsq, k=k)
 
 
-def l2dist_q(queries, xs, *, out_scale: float = 1.0):
+def l2dist_q(queries, xs, xsq=None, *, out_scale: float = 1.0):
     """Code-space distance matrix over uint8 / int8 rows
-    (kernels/qdist.py): `max(l2, 0) * out_scale`, [Bq, Bx] float32."""
+    (kernels/qdist.py): `max(l2, 0) * out_scale`, [Bq, Bx] float32; `xsq`
+    [Bx] defaults to the rows' sums of squares, +inf marks padding rows
+    (their column reads +inf)."""
     fn = _pick(xs, l2dist_q_cuda, l2dist_q_ref, "l2dist_q")
-    return fn(queries, xs, out_scale=out_scale)
+    return fn(queries, xs, xsq, out_scale=out_scale)
 
 
 def l2topk_q(queries, xs, xsq=None, *, k: int = 10, out_scale: float = 1.0):

@@ -11,18 +11,24 @@ the plain PyTorch versions and the wrappers of their CUDA kernels.
 
 Queries are codes or code-valued float32; at D <= 256 every dot product
 is an exact integer and kernel, plain version and reference agree
-bitwise. `l2dist_q` runs on `csrc/l2dist.cu` (see `kernels/l2dist.py`;
-codes widened to float32, int8 sign-extended) and counts its launches in
-`L2DIST_Q_LAUNCHES`. `l2topk_q` runs on one of two kernels, chosen by
-dtype and shape (the order, pad and tail rules of `kernels/l2topk.py`):
+bitwise. Each scan runs on one of two kernels, chosen by dtype and shape:
 
-- `csrc/l2topk_q_tc.cu`, u8 / s8 `wgmma` into exact int32 sums, for
-  queries given as codes of the rows' dtype with D a multiple of 16 up to
-  256 and 16-byte aligned bases (`takes_tensor_cores`);
+- `l2dist_q`: `csrc/l2dist_q_tc.cu`, u8 / s8 `wgmma` into exact int32
+  sums and a TMA-stored output, for queries given as codes of the rows'
+  dtype with D a multiple of 16 up to 256, Bx a multiple of 4 (the
+  output's 16-byte row pitch) and 16-byte aligned bases
+  (`takes_tensor_cores_dist`); `l2dist_q_tc_cuda` launches it and counts
+  in `L2DIST_Q_TC_LAUNCHES`. Else `csrc/l2dist.cu` (see
+  `kernels/l2dist.py`; codes widened to float32, int8 sign-extended);
+  `l2dist_q_fma_cuda` launches it and counts in `L2DIST_Q_LAUNCHES`.
+- `l2topk_q` (the order, pad and tail rules of `kernels/l2topk.py`):
+  `csrc/l2topk_q_tc.cu`, u8 / s8 `wgmma` with selection warps, for the
+  same queries and D with no rule on Bx (`takes_tensor_cores`);
   `l2topk_q_tc_cuda` launches it and counts in `L2TOPK_Q_TC_LAUNCHES`.
-- `csrc/l2topk.cu`, FP32 FMAs over codes widened to float32, for
-  code-valued float32 queries and the other shapes; `l2topk_q_fma_cuda`
-  launches it and counts in `L2TOPK_Q_LAUNCHES`.
+  Else `csrc/l2topk.cu`, FP32 FMAs over codes widened to float32;
+  `l2topk_q_fma_cuda` launches it and counts in `L2TOPK_Q_LAUNCHES`.
+
+Code-valued float32 queries take the FMA kernels.
 
 No value of the input is read to choose, and a failed build or launch of
 either raises.
@@ -66,22 +72,24 @@ from repro_torch.kernels.l2dist import (
     sqnorms,
 )
 from repro_torch.kernels.l2topk import (
-    MAX_SPLITS as _L2TOPK_MAX_SPLITS,
-    MERGE_CANDIDATES,
     fused_topk_ref,
     launch_fused_topk,
+    splits_for,
 )
 
 __all__ = ["ADC_LAUNCHES", "TOPK_LAUNCHES", "L2DIST_Q_LAUNCHES",
-           "L2TOPK_Q_LAUNCHES", "L2TOPK_Q_TC_LAUNCHES", "MAX_K",
-           "l2dist_q_ref", "l2dist_q_cuda", "l2topk_q_ref", "l2topk_q_cuda",
-           "l2topk_q_fma_cuda", "l2topk_q_tc_cuda", "pq_adc_ref",
-           "pq_topk_ref", "pq_adc_cuda", "pq_topk_cuda", "takes_tensor_cores"]
+           "L2DIST_Q_TC_LAUNCHES", "L2TOPK_Q_LAUNCHES",
+           "L2TOPK_Q_TC_LAUNCHES", "MAX_K", "l2dist_q_ref", "l2dist_q_cuda",
+           "l2dist_q_fma_cuda", "l2dist_q_tc_cuda", "l2topk_q_ref",
+           "l2topk_q_cuda", "l2topk_q_fma_cuda", "l2topk_q_tc_cuda",
+           "pq_adc_ref", "pq_topk_ref", "pq_adc_cuda", "pq_topk_cuda",
+           "takes_tensor_cores", "takes_tensor_cores_dist"]
 
 # launches of each CUDA kernel since import (or since a caller reset them)
 ADC_LAUNCHES = 0
 TOPK_LAUNCHES = 0
-L2DIST_Q_LAUNCHES = 0
+L2DIST_Q_LAUNCHES = 0             # csrc/l2dist.cu over code rows
+L2DIST_Q_TC_LAUNCHES = 0          # csrc/l2dist_q_tc.cu
 L2TOPK_Q_LAUNCHES = 0             # csrc/l2topk.cu over code rows
 L2TOPK_Q_TC_LAUNCHES = 0          # csrc/l2topk_q_tc.cu
 
@@ -155,7 +163,12 @@ _TC_SIGNATURES = {
                           [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]),
     "repro_l2topk_q_tc_error_string": (ctypes.c_char_p, [_I]),
 }
-# the integer kernel's widest D: int32 sums of D code products stay exact
+_DIST_TC_SIGNATURES = {
+    "repro_l2dist_q_tc": (ctypes.c_int,
+                          [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P]),
+    "repro_l2dist_q_tc_error_string": (ctypes.c_char_p, [_I]),
+}
+# the integer kernels' widest D: int32 sums of D code products stay exact
 # in float32 (below 2^24) up to 256 uint8 columns
 TC_MAX_D = 256
 # CTAs that fill the card: one per SM of the H100's 132 (800 threads)
@@ -254,18 +267,6 @@ def pq_topk_cuda(luts, codes, xpad=None, *, k: int = 10):
     return out_d, out_i
 
 
-def l2dist_q_cuda(queries, xs, xsq=None, *, out_scale: float = 1.0):
-    """Launch `csrc/l2dist.cu` over uint8 / int8 code rows on the current
-    stream; returns d [Bq, Bx] float32. Raises on any other device, dtype,
-    shape or layout."""
-    global L2DIST_Q_LAUNCHES
-    out = launch_distance_matrix(queries, xs, xsq, metric="l2",
-                                 out_scale=out_scale,
-                                 row_dtypes=_CODE_DTYPES, what="l2dist_q")
-    L2DIST_Q_LAUNCHES += 1
-    return out
-
-
 def takes_tensor_cores(queries, xs) -> bool:
     """Whether `l2topk_q_cuda` gives these operands to the integer
     tensor-core kernel: queries given as codes of the rows' dtype (uint8
@@ -277,6 +278,65 @@ def takes_tensor_cores(queries, xs) -> bool:
     return (xs.dtype in _CODE_DTYPES and queries.dtype == xs.dtype
             and d % 16 == 0 and d <= TC_MAX_D and xs.shape[0] > 0
             and queries.data_ptr() % 16 == 0 and xs.data_ptr() % 16 == 0)
+
+
+def takes_tensor_cores_dist(queries, xs) -> bool:
+    """Whether `l2dist_q_cuda` gives these operands to the integer
+    tensor-core kernel: `takes_tensor_cores`' rule, and Bx a multiple of 4
+    (TMA stores the [Bq, Bx] float32 output, whose row pitch must be a
+    multiple of 16 bytes). Code-valued float32 queries and the other
+    shapes go to the FP32-FMA kernel."""
+    return takes_tensor_cores(queries, xs) and xs.shape[0] % 4 == 0
+
+
+def l2dist_q_fma_cuda(queries, xs, xsq=None, *, out_scale: float = 1.0):
+    """Launch `csrc/l2dist.cu` (FP32 FMAs) over uint8 / int8 code rows on
+    the current stream; returns d [Bq, Bx] float32. Raises on any other
+    device, dtype, shape or layout."""
+    global L2DIST_Q_LAUNCHES
+    out = launch_distance_matrix(queries, xs, xsq, metric="l2",
+                                 out_scale=out_scale,
+                                 row_dtypes=_CODE_DTYPES, what="l2dist_q")
+    L2DIST_Q_LAUNCHES += 1
+    return out
+
+
+def l2dist_q_tc_cuda(queries, xs, xsq=None, *, out_scale: float = 1.0):
+    """Launch `csrc/l2dist_q_tc.cu` (u8 / s8 wgmma) on the current stream;
+    returns d [Bq, Bx] float32. Raises on operands
+    `takes_tensor_cores_dist` refuses, as `row_operands` does, and if the
+    launch fails."""
+    global L2DIST_Q_TC_LAUNCHES
+    _, _, _, dev = row_operands(queries, xs, xsq, _CODE_DTYPES, "l2dist_q")
+    if not takes_tensor_cores_dist(queries, xs) or \
+            not queries.is_contiguous():
+        raise ValueError(f"l2dist_q: the tensor-core kernel takes contiguous "
+                         f"code queries of the rows' dtype, D % 16 == 0, D <= "
+                         f"{TC_MAX_D}, Bx % 4 == 0 and 16-byte aligned bases; "
+                         f"got {queries.dtype} queries, {xs.dtype} rows "
+                         f"{tuple(xs.shape)}")
+    (bq, d), bx = queries.shape, xs.shape[0]
+    qsq = sqnorms(queries)
+    xsq = sqnorms(xs) if xsq is None else xsq
+    out = torch.empty((bq, bx), dtype=torch.float32, device=dev)
+    lib = _build.load("l2dist_q_tc", _DIST_TC_SIGNATURES)
+    err = lib.repro_l2dist_q_tc(
+        queries.data_ptr(), xs.data_ptr(), qsq.data_ptr(), xsq.data_ptr(),
+        out.data_ptr(), dev.index or 0, bq, bx, d, ROW_DTYPES[xs.dtype],
+        as_f32(out_scale), torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, "repro_l2dist_q_tc_error_string", err,
+             "l2dist_q (tensor cores)")
+    L2DIST_Q_TC_LAUNCHES += 1
+    return out
+
+
+def l2dist_q_cuda(queries, xs, xsq=None, *, out_scale: float = 1.0):
+    """d [Bq, Bx] float32 from one of the two CUDA kernels, chosen by
+    dtype and shape: `l2dist_q_tc_cuda` where `takes_tensor_cores_dist`
+    holds, else `l2dist_q_fma_cuda`. Raises as they do."""
+    if takes_tensor_cores_dist(queries, xs):
+        return l2dist_q_tc_cuda(queries, xs, xsq, out_scale=out_scale)
+    return l2dist_q_fma_cuda(queries, xs, xsq, out_scale=out_scale)
 
 
 def l2topk_q_fma_cuda(queries, xs, xsq=None, *, k: int = 10,
@@ -311,9 +371,7 @@ def l2topk_q_tc_cuda(queries, xs, xsq=None, *, k: int = 10,
     (bq, d), bx = queries.shape, xs.shape[0]
     qsq = sqnorms(queries)
     xsq = sqnorms(xs) if xsq is None else xsq
-    groups = -(-bq // 64)
-    splits = max(1, min(_L2TOPK_MAX_SPLITS, -(-_TC_CTAS // groups),
-                        -(-bx // 64), MERGE_CANDIDATES // k))
+    splits = splits_for(bq, bx, k, _TC_CTAS)
     part_d = torch.empty((bq, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((bq, splits, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((bq, k), dtype=torch.float32, device=dev)

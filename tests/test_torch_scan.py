@@ -322,9 +322,11 @@ def test_cuda_scan_kernels_match_plain_versions(bq, bx, d, row_dtype):
         q, x = np.clip(q - 128, -127, 127), np.clip(x - 128, -127, 127)
     q, x = (t.to(dev) for t in _t(q, x))
     x = x.to(row_dtype)
-    counts = (l2dist.TC_LAUNCHES, l2dist.LAUNCHES, l2topk.LAUNCHES,
-              qdist.L2DIST_Q_LAUNCHES, qdist.L2TOPK_Q_LAUNCHES)
+    counts = (l2dist.TC_LAUNCHES, l2dist.LAUNCHES, l2topk.TC_LAUNCHES,
+              l2topk.LAUNCHES, qdist.L2DIST_Q_LAUNCHES,
+              qdist.L2TOPK_Q_LAUNCHES)
     tc = l2dist.takes_tensor_cores(q, x)       # by dtype and shape
+    tc_topk = l2topk.takes_tensor_cores(q, x)
     xsq = l2dist.sqnorms(x)
     xsq[bx // 2:] = float("inf")
     for metric in ("l2", "ip", "cosine"):
@@ -342,11 +344,13 @@ def test_cuda_scan_kernels_match_plain_versions(bq, bx, d, row_dtype):
         want = qdist.l2topk_q_ref(q, x, xsq, k=10, out_scale=INT8_SCALE2)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     torch.cuda.synchronize()
+    # the queries are float32, so the 8-bit scans take their FMA kernels
     quant = row_dtype != torch.float32
-    assert (l2dist.TC_LAUNCHES, l2dist.LAUNCHES, l2topk.LAUNCHES,
-            qdist.L2DIST_Q_LAUNCHES, qdist.L2TOPK_Q_LAUNCHES) == (
-        counts[0] + 3 * tc, counts[1] + 3 * (not tc), counts[2] + 6,
-        counts[3] + quant, counts[4] + quant)
+    assert (l2dist.TC_LAUNCHES, l2dist.LAUNCHES, l2topk.TC_LAUNCHES,
+            l2topk.LAUNCHES, qdist.L2DIST_Q_LAUNCHES,
+            qdist.L2TOPK_Q_LAUNCHES) == (
+        counts[0] + 3 * tc, counts[1] + 3 * (not tc), counts[2] + 6 * tc_topk,
+        counts[3] + 6 * (not tc_topk), counts[4] + quant, counts[5] + quant)
 
 
 @pytest.mark.cuda
