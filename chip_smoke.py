@@ -27,10 +27,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                traversal_async.cu runs with its visited bitmap in global
                memory (1M rows) and in shared memory (65,536); its shared-
                memory count against the Python mirror and its CTAs an SM
-               at the main path's shapes (>= 8); and pq_adc / pq_topk
-               (M=16, 256 queries, k=10) over 1,000,000 random code rows
-               with float-valued and integer-valued (tie-heavy) tables and
-               +inf padding rows, bitwise equal.
+               at the main path's shapes (>= 8); and pq_adc and both
+               pq_topk kernels (pq_topk_smem.cu and qdist.cu's; M=16, 256
+               queries, k = 1, 10 and 64) over 1,000,000 seeded uint8
+               code rows with float-valued and integer-valued tables in
+               [0, 8) (tie-heavy), with and without +inf padding rows,
+               bitwise equal.
   4. main    — the port's float32 main path through its public entry
                points: SearchService.build(partitioned, P=4, M=16,
                ef_construction=100, fused_hops=4) over 32,768
@@ -62,15 +64,22 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                on one batch; pq (pq_m=16, codebooks fitted by the port's
                PQQuantizer.fit and rounded to integers, so every LUT entry
                is an exact integer): the exact backend through the pq_topk
-               kernel (launches > 0), its ids equal to a host numpy ADC
-               top-10 on one batch; partitioned with rerank off and on,
+               kernels (pq_topk_smem.cu launches > 0, qdist.cu's pq_topk
+               launches == 0), its ids equal to a host numpy ADC top-10
+               on one batch, its p50 per batch read again with ops.pq_topk
+               sent to each kernel in turns (the same ids); partitioned with rerank off and on,
                its rerank-off ids against the exact ADC scan's (overlap
                gate), rerank on no worse than off; recall@10 against the
                float32 exact backend is printed (PQ at 16 bytes a row
                cannot resolve this data's neighbors: see PERF.md); a CPU
                copy of each backend bitwise equal on one batch. Then the 8-bit
                traversal and the PQ kernels are timed at these paths'
-               shapes against their plain versions and bounds.
+               shapes against their plain versions and bounds (the PQ
+               kernels by device time, both pq_topk kernels in turns, CUDA
+               events around a call printed beside; the bound the largest
+               of bytes, float adds and shared-memory lookups), and both
+               pq_topk kernels by device time at the kernel phase's
+               1,000,000 rows on its integer tables with padding rows.
 
   7. scan    — the exact-scan kernels through the public `kernels.ops` API,
                SIFT1M's size: 1,000,000 integer-valued 128-d float32 rows
@@ -111,9 +120,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                `prefill_step` into a 2,080-position MLA cache, then 32
                greedy `decode_step`s, the topk and flash_attention launch
                counters reset just before and read just after. Checks: (a)
-               the topk kernel bitwise equal to its plain version on the
-               router's own [16,384, 64] rows (k=6) and at [256, 1M] (k=10)
-               with ties and +inf; (b) the flash kernels within FLASH_TOL
+               both topk kernels (select_k_short.cu, select_k.cu) bitwise
+               equal to the plain version on the router's own [16,384, 64]
+               rows (k=6) and on [4,096, 64] rows with ties, NaN, +/-inf
+               and -0.0 beside +0.0 (k = 1, 6, 64; the plain version on
+               the CPU), select_k.cu also at [256, 1M] (k=10) with ties
+               and +inf; (b) the flash kernels within FLASH_TOL
                of their plain version: the bf16 tensor-core kernel at
                [128, 2048, 192] causal and at ragged bf16 shapes (T and S
                not multiples of 64 or 128, S != T without the mask, hd =
@@ -128,16 +140,19 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                greedy token equal on LM_GREEDY_SHARE of the rows (set
                from scripts/torch_lm_gates.py); then (c) and (d) again in
                float32 at full width, depth 1 + 2, within the reference's
-               2e-3 with every greedy token equal; (e) 26 topk and 27
-               tensor-core flash launches a prefill (0 of the FMA
-               kernel), 26 topk a decode step. Prints
+               2e-3 with every greedy token equal; (e) 26 short-row topk
+               and 27 tensor-core flash launches a prefill (0 of
+               select_k.cu and of the FMA flash kernel), 26 short-row
+               topk a decode step. Prints
                prefill ms and tokens/s, decode p50 / p99 ms a step and
                tokens/s, peak memory, a torch.profiler split of one
                prefill and one decode step, and each kernel beside its
                plain version, a library call (torch.topk,
                scaled_dot_product_attention; timed only) and its bound,
                the FMA flash kernel at the path's shape beside the
-               tensor-core one.
+               tensor-core one, both topk kernels by device time at
+               [16,384, 64] and [8, 64] beside the device time of one
+               trivial kernel (a launch floor).
 
 Each serving path prints QPS and p50/p99 per 256-query batch. The line
 before the last is {"kernels": [...]} with each kernel's launches on its
@@ -238,6 +253,26 @@ def bound(bytes_: float, ops: float, peak: float):
     """(bound ms, "bytes" or "operations"): the larger of the two times."""
     tb, to = bytes_ / HBM_BYTES_PER_S, ops / peak
     return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def pq_bound(bytes_: float, adds: float, lookups: float):
+    """(bound ms, bound_by, what): the largest of the bytes over the memory
+    rate, the float adds over FP32's rate and the shared-memory table
+    lookups over SMEM_LOOKUPS_PER_S. Lookups and adds are both operations
+    ("operations"); `what` names the one that bounds."""
+    times = {"bytes": bytes_ / HBM_BYTES_PER_S, "adds": adds / FP32_FLOPS,
+             "lookups": lookups / SMEM_LOOKUPS_PER_S}
+    what = max(times, key=times.get)
+    return (times[what] * 1e3, "bytes" if what == "bytes" else "operations",
+            what)
+
+
+def in_turns(fns: dict, reps: int = 20) -> dict:
+    """device_ms of each of two calls in turns (a, b, b, a), averaged: the
+    two kernels meet the same clocks."""
+    (na, fa), (nb, fb) = fns.items()
+    a1, b1, b2, a2 = (device_ms(f, reps) for f in (fa, fb, fb, fa))
+    return {na: (a1 + a2) / 2, nb: (b1 + b2) / 2}
 
 
 def main_data(n: int, n_queries: int):
@@ -468,17 +503,18 @@ def async_layout_check() -> None:
 
 
 def pq_kernel_check(n_rows: int, g) -> dict:
-    """pq_adc and pq_topk against their plain versions, bitwise."""
+    """pq_adc and both pq_topk kernels against their plain versions at
+    n_rows x M=16, 256 queries, bitwise: float tables and integer tables
+    in [0, 8) (ties), with and without 16 +inf padding rows, k = 1, 10,
+    64."""
     from repro_torch.kernels import qdist as qd
 
-    B, K = 256, 10
-    dev = torch.device(DEVICE)
-    luts = torch.rand((B, PQ_M, 256), generator=g, device=dev) * 50
-    codes = torch.randint(0, 256, (n_rows, PQ_M), generator=g, device=dev,
-                          dtype=torch.int32).to(torch.uint8)
-    xpad = torch.zeros(n_rows, device=dev)
-    xpad[n_rows - 16:] = float("inf")                      # 16 pad rows
-    worst = {"pq_adc": 0.0, "pq_topk": 0.0}
+    B = 256
+    luts = torch.rand((B, PQ_M, 256), generator=g, device=DEVICE) * 50
+    ints, codes, xpad = pq_wide_inputs(n_rows, g)
+    check(qd.pq_topk_route(ints, codes, xpad, 10),
+          "the 1M-row PQ shape does not take pq_topk_smem.cu")
+    worst = {"pq_adc": 0.0, "pq_topk": 0.0, "pq_topk_v1": 0.0}
     for xp in (None, xpad):
         k_ms = events_ms(lambda: qd.pq_adc_cuda(luts, codes, xp))
         got = qd.pq_adc_cuda(luts, codes, xp)
@@ -492,22 +528,64 @@ def pq_kernel_check(n_rows: int, g) -> dict:
             f"(xpad={xp is not None}): bitwise equal; kernel {k_ms:.3f} ms, "
             f"plain {r_ms:.3f} ms")
         del got, want, fin
-        for name, tab in (("float", luts), ("integer", torch.floor(luts / 10))):
-            k_ms = events_ms(lambda: qd.pq_topk_cuda(tab, codes, xp, k=K))
-            gv, gi = qd.pq_topk_cuda(tab, codes, xp, k=K)
-            r_ms = events_ms(lambda: qd.pq_topk_ref(tab, codes, xp, k=K))
-            wv, wi = qd.pq_topk_ref(tab, codes, xp, k=K)
-            check(torch.equal(gv, wv) and torch.equal(gi, wi),
-                  f"pq_topk != plain ({name} tables, xpad={xp is not None})")
-            if xp is not None:
-                check(int(gi.max()) < n_rows - 16, "pq_topk returned a pad row")
-            worst["pq_topk"] = max(worst["pq_topk"],
-                                   float((gv - wv).abs().max()))
-            log(f"[kernel] pq_topk {B} x {n_rows} x M={PQ_M}, k={K}, {name} "
-                f"tables (xpad={xp is not None}): bitwise equal (ids and "
-                f"dists); kernel {k_ms:.3f} ms, plain {r_ms:.3f} ms")
+        for name, tab in (("float", luts), ("integer [0, 8)", ints)):
+            wv64, wi64 = qd.pq_topk_ref(tab, codes, xp, k=64)
+            for k in (1, 10, 64):
+                wv, wi = wv64[:, :k], wi64[:, :k]
+                for key, fn in (("pq_topk", qd.pq_topk_smem_cuda),
+                                ("pq_topk_v1", qd.pq_topk_v1_cuda)):
+                    gv, gi = fn(tab, codes, xp, k=k)
+                    check(torch.equal(gv, wv) and torch.equal(gi, wi),
+                          f"{key} != plain ({name} tables, k={k}, "
+                          f"xpad={xp is not None})")
+                    if xp is not None:
+                        check(int(gi.max()) < n_rows - 16,
+                              f"{key} returned a pad row")
+                    worst[key] = max(worst[key], float((gv - wv).abs().max()))
+            log(f"[kernel] pq_topk {B} x {n_rows} x M={PQ_M}, {name} tables "
+                f"(xpad={xp is not None}): pq_topk_smem.cu and qdist.cu "
+                f"bitwise equal to the plain version (ids and dists) at k = "
+                f"1, 10, 64")
+            del wv64, wi64
     torch.cuda.empty_cache()
     return worst
+
+
+def pq_wide_inputs(n_rows: int, g):
+    """256 queries' integer tables in [0, 8) (ties), n_rows seeded uint8
+    code rows of M=16, an xpad with 16 +inf padding rows."""
+    ints = torch.floor(torch.rand((256, PQ_M, 256), generator=g,
+                                  device=DEVICE) * 8)
+    codes = torch.randint(0, 256, (n_rows, PQ_M), generator=g, device=DEVICE,
+                          dtype=torch.int32).to(torch.uint8)
+    xpad = torch.zeros(n_rows, device=DEVICE)
+    xpad[n_rows - 16:] = float("inf")
+    return ints, codes, xpad
+
+
+def pq_wide_timing(n_rows: int, seed: int) -> dict:
+    """Both pq_topk kernels at 256 x n_rows x M=16, k=10, on
+    pq_wide_inputs (the kernel phase's tie-heavy check), device time in
+    turns. Runs after the traversal timings, which take the run's first
+    profiler traces."""
+    from repro_torch.kernels import qdist as qd
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    ints, codes, xpad = pq_wide_inputs(n_rows, g)
+    t = in_turns({"smem": lambda: qd.pq_topk_smem_cuda(ints, codes, xpad, k=10),
+                  "v1": lambda: qd.pq_topk_v1_cuda(ints, codes, xpad, k=10)},
+                 reps=5)
+    lookups = 256 * n_rows * PQ_M
+    t["bound_ms"], _, what = pq_bound(256 * PQ_M * 1024 + codes.numel()
+                                      + n_rows * 4 + 256 * 10 * 8, lookups,
+                                      lookups)
+    log(f"[timing] pq_topk 256 x {n_rows} x M={PQ_M}, k=10, integer tables, "
+        f"16 pad rows, device time (torch.profiler, in turns): "
+        f"pq_topk_smem.cu {t['smem']:.4f} ms, qdist.cu {t['v1']:.4f} ms "
+        f"({t['v1'] / t['smem']:.2f}x); bound {t['bound_ms']:.4f} ms ({what})")
+    del ints, codes, xpad
+    torch.cuda.empty_cache()
+    return t
 
 
 def kernel_phase(n_rows: int, seed: int) -> dict:
@@ -864,8 +942,10 @@ def pq_split(svc, q) -> dict:
 
 
 def pq_timing(exact, q, reps: int = 5) -> dict:
-    """pq_topk and pq_adc against their plain versions at the exact PQ
-    path's shapes (one batch's LUTs over the whole code table)."""
+    """Both pq_topk kernels and pq_adc against their plain versions at the
+    exact PQ path's shapes (one batch's LUTs over the whole code table):
+    device time by torch.profiler (both pq_topk kernels in turns), CUDA
+    events around a call (the wrapper's host work included) beside."""
     from repro_torch.kernels import qdist as qd
     from repro_torch.optim import build_pq_lut
 
@@ -877,31 +957,45 @@ def pq_timing(exact, q, reps: int = 5) -> dict:
     lut_host_ms = (time.perf_counter() - t0) * 1e3
     codes = be.codes
     (bq, m, _), bx, k = luts.shape, codes.shape[0], 10
+    check(qd.pq_topk_route(luts, codes, None, k),
+          "the exact PQ path's shapes do not take pq_topk_smem.cu")
+    kern = {"pq_topk": lambda: qd.pq_topk_smem_cuda(luts, codes, k=k),
+            "pq_topk_v1": lambda: qd.pq_topk_v1_cuda(luts, codes, k=k),
+            "pq_adc": lambda: qd.pq_adc_cuda(luts, codes)}
+    plain = {"pq_topk": lambda: qd.pq_topk_ref(luts, codes, k=k),
+             "pq_adc": lambda: qd.pq_adc_ref(luts, codes)}
+    plain["pq_topk_v1"] = plain["pq_topk"]
+    dev_ms = in_turns({n: kern[n] for n in ("pq_topk", "pq_topk_v1")})
+    dev_ms["pq_adc"] = device_ms(kern["pq_adc"])
     out = {}
-    for name, kern, plain, out_bytes in (
-            ("pq_topk", lambda: qd.pq_topk_cuda(luts, codes, k=k),
-             lambda: qd.pq_topk_ref(luts, codes, k=k), bq * k * 8),
-            ("pq_adc", lambda: qd.pq_adc_cuda(luts, codes),
-             lambda: qd.pq_adc_ref(luts, codes), bq * bx * 4)):
-        got, want = kern(), plain()
+    for name in ("pq_topk", "pq_topk_v1", "pq_adc"):
+        got, want = kern[name](), plain[name]()
         same = (torch.equal(got, want) if name == "pq_adc" else
                 all(torch.equal(a, b) for a, b in zip(got, want)))
         check(same, f"{name} != plain at the exact PQ path's shapes")
+        out_bytes = bq * bx * 4 if name == "pq_adc" else bq * k * 8
         bytes_ = luts.numel() * 4 + codes.numel() + out_bytes
-        adds = bq * bx * m
-        bound_ms, bound_by = bound(bytes_, adds, FP32_FLOPS)
-        out[name] = {"ms": median_ms(kern, reps),
-                     "plain_ms": median_ms(plain, reps),
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "lookup_floor_ms": adds / SMEM_LOOKUPS_PER_S * 1e3}
+        adds = lookups = bq * bx * m
+        bound_ms, bound_by, what = pq_bound(bytes_, adds, lookups)
+        out[name] = {"ms": dev_ms[name], "events_ms": median_ms(kern[name], reps),
+                     "plain_ms": median_ms(plain[name], reps),
+                     "bound_ms": bound_ms, "bound_by": bound_by}
         log(f"[timing] {name} at the exact PQ path's shapes ({bq} queries x "
-            f"{bx} rows x M={m}): kernel {out[name]['ms']:.4f} ms, plain "
-            f"{out[name]['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms "
-            f"({out[name]['bound_by']}: {bytes_ / 1e6:.3f} MB, {adds / 1e6:.1f}M "
-            f"fp32 adds), shared-memory lookup floor "
-            f"{out[name]['lookup_floor_ms']:.5f} ms")
+            f"{bx} rows x M={m}): kernel {out[name]['ms']:.4f} ms device "
+            f"(torch.profiler; {out[name]['events_ms']:.4f} ms by CUDA "
+            f"events around a call), plain {out[name]['plain_ms']:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({what}: {lookups / 1e6:.1f}M "
+            f"shared-memory lookups {lookups / SMEM_LOOKUPS_PER_S * 1e3:.5f} "
+            f"ms, {adds / 1e6:.1f}M fp32 adds {adds / FP32_FLOPS * 1e3:.5f} "
+            f"ms, {bytes_ / 1e6:.3f} MB {bytes_ / HBM_BYTES_PER_S * 1e3:.5f} "
+            f"ms)")
+    log(f"[timing] pq_topk at the exact PQ path's shapes: pq_topk_smem.cu "
+        f"{out['pq_topk']['ms']:.4f} ms against qdist.cu's "
+        f"{out['pq_topk_v1']['ms']:.4f} ms device time "
+        f"({out['pq_topk_v1']['ms'] / out['pq_topk']['ms']:.2f}x)")
     log(f"[timing] exact PQ batch: LUT build {lut_host_ms:.3f} ms (host "
         f"clock), pq_topk {out['pq_topk']['ms']:.4f} ms (device)")
+    out["wide"] = pq_wide_timing(1_000_000, seed=2)
     return out
 
 
@@ -917,6 +1011,33 @@ def adc_topk_np(codes, codebooks, q, k: int = 10):
         lut = ((sub[:, None, :] - codebooks[mi][None]) ** 2).sum(-1)
         adc += lut[:, codes[:, mi]]
     return np.argsort(adc, axis=1, kind="stable")[:, :k]
+
+
+def pq_route_p50(exact, queries, ids, p50_main: float) -> dict:
+    """The exact PQ batch's p50 on each pq_topk kernel within this run:
+    the main loop's (pq_topk_smem.cu), then with ops.pq_topk sent to
+    qdist.cu's kernel twice and to pq_topk_smem.cu again (in turns), the
+    same ids every time."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qdist as qd
+    from repro_torch.launch.serve import serve_loop
+
+    p50 = {"smem": [p50_main], "v1": []}
+    for route in ("v1", "v1", "smem"):
+        ops.pq_topk_cuda = (qd.pq_topk_v1_cuda if route == "v1"
+                            else qd.pq_topk_smem_cuda)
+        try:
+            got, st = serve_loop(exact, queries, BATCH, 10, 40,
+                                 log=lambda m: None)
+        finally:
+            ops.pq_topk_cuda = qd.pq_topk_cuda
+        check(np.array_equal(got, ids), f"pq exact ids differ on {route}")
+        p50[route].append(st["p50_ms"])
+    log(f"[pq-exact] p50 per {BATCH}-query batch by pq_topk kernel, in turns "
+        f"(smem, v1, v1, smem): pq_topk_smem.cu {p50['smem'][0]:.3f} / "
+        f"{p50['smem'][1]:.3f} ms, qdist.cu {p50['v1'][0]:.3f} / "
+        f"{p50['v1'][1]:.3f} ms (host clock, ids equal)")
+    return p50
 
 
 def pq_phase(path: str, data, queries, gt) -> dict:
@@ -939,15 +1060,18 @@ def pq_phase(path: str, data, queries, gt) -> dict:
 
     # one untimed batch first, as serve_paths does
     exact.search(SearchRequest(queries[:BATCH], k=10, ef=40)).ids.cpu()
-    qd.TOPK_LAUNCHES = 0
+    qd.TOPK_LAUNCHES = qd.TOPK_SMEM_LAUNCHES = 0
     ids, st = serve_loop(exact, queries, BATCH, 10, 40,
                          log=lambda m: log(f"[pq-exact] {m}"))
-    launches = qd.TOPK_LAUNCHES
+    launches, v1 = qd.TOPK_SMEM_LAUNCHES, qd.TOPK_LAUNCHES
     log(f"[pq-exact] recall@10 {recall_at(ids, gt):.4f} against the float32 "
         f"exact backend, QPS {st['qps']:.1f}, p50 {st['p50_ms']:.3f} ms, p99 "
         f"{st['p99_ms']:.3f} ms per {BATCH}-query batch; pq_topk launches "
-        f"{launches}")
-    check(launches > 0, "the exact PQ path launched no pq_topk kernel")
+        f"{launches} (pq_topk_smem.cu; qdist.cu's {v1})")
+    check(launches > 0 and v1 == 0,
+          f"the exact PQ path launched pq_topk_smem.cu {launches} times and "
+          f"qdist.cu's pq_topk {v1} times (expected > 0 and 0)")
+    p50 = pq_route_p50(exact, queries, ids, st["p50_ms"])
     q0 = queries[:BATCH]
     check(np.array_equal(ids[:BATCH], adc_topk_np(exact.backend.raw, cbs, q0)),
           "pq exact ids != the host numpy ADC top-10")
@@ -971,7 +1095,8 @@ def pq_phase(path: str, data, queries, gt) -> dict:
     check_cpu_copy(exact, exact_cpu, q0, "pq-exact")
     split = pq_split(spq, q0)
     timing = pq_timing(exact, q0)
-    return {"launches": launches, "timing": timing, "split": split}
+    return {"launches": launches, "timing": timing, "split": split,
+            "p50_ms": p50}
 
 
 # ---------------------------------------------------------------------------
@@ -1446,7 +1571,8 @@ def profile_split(fn) -> dict:
     out = {"wall_ms": wall, "device_ms": ms(kern),
            "attention_ms": ms(e for e in kern   # either flash kernel
                               if "flash_attention" in e.name),
-           "router_ms": ms(e for e in kern if "select_k_kernel" in e.name)}
+           "router_ms": ms(e for e in kern   # either topk kernel
+                           if "select_k" in e.name)}
     for name in ranges:
         out[name] = sum(e.device_time_total for e in events
                         if e.name == name and e.device_type == DeviceType.CPU
@@ -1519,31 +1645,56 @@ def log_split(what: str, s: dict) -> None:
         f"{name[:70]} {us / 1e3:.3f} ms" for name, us in s["top"]))
 
 
-def lm_topk_checks(router_neg, g) -> float:
-    """(a) the topk kernel bitwise equal to its plain version on the
-    router's own [B*T, E] rows and at LM_TOPK_WIDE ([256, 1M]), k=10, with
-    ties and +inf entries. Returns the largest |kernel - plain| over
-    finite values (0)."""
+def lm_topk_checks(router_neg, g) -> dict:
+    """(a) both topk kernels bitwise equal to the plain version: on the
+    router's own [B*T, E] rows (k=6), and on [4,096, E] rows with ties,
+    NaN, +/-inf and -0.0 beside +0.0 (k = 1, 6, 64; the plain version on
+    the CPU, whose sort ties the zeros); select_k.cu also at LM_TOPK_WIDE
+    ([256, 1M]), k=10, with ties and +inf (the short-row kernel refuses
+    it). Returns each kernel's largest |kernel - plain| over finite
+    values (0)."""
     from repro_torch.kernels import topk
 
-    cases = [("router rows", router_neg, LM_TOPK)]
+    e = router_neg.shape[1]
+    odd = torch.round(torch.randn((4096, e), generator=g, device=DEVICE)
+                      * 4) / 4                          # many ties
+    pick = torch.randint(0, 8, odd.shape, generator=g, device=DEVICE)
+    for code, val in ((1, float("nan")), (2, float("inf")),
+                      (3, -float("inf")), (4, 0.0), (5, -0.0)):
+        odd[pick == code] = val
+    odd[7] = float("nan")
+    odd[9] = -0.0
+    cases = [("router rows", router_neg, (LM_TOPK,), False),
+             ("ties, NaN, +/-inf, signed zeros", odd, (1, LM_TOPK, 64), True)]
     big = torch.round(torch.randn(LM_TOPK_WIDE, generator=g,
                                   device=DEVICE) * 16) / 16     # many ties
     big[:, 7::11] = float("inf")
     big[3] = float("inf")
     big[5, 1000:] = float("inf")
-    cases.append(("ties and +inf", big, 10))
-    worst = 0.0
-    for what, x, kk in cases:
-        got, want = topk.topk_cuda(x, kk), topk.topk_ref(x, kk)
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-              f"topk kernel != plain on {what}")
-        fin = torch.isfinite(want[0])
-        worst = max(worst, float((got[0][fin] - want[0][fin]).abs().max()))
-        log(f"[lm] (a) topk {list(x.shape)}, k={kk}, {what}: values and ids "
-            f"bitwise equal to its plain version "
-            f"({int((want[1] < 0).sum())} unfilled slots, (+inf, -1) in both)")
-    del big
+    cases.append(("ties and +inf", big, (10,), False))
+    worst = {"topk": 0.0, "topk_stream": 0.0}
+    for what, x, ks, on_cpu in cases:
+        routes = (("topk_stream", topk.topk_stream_cuda),)
+        if topk.takes_short_rows(x.shape[1], max(ks)):
+            routes = (("topk", topk.topk_short_cuda),) + routes
+        for kk in ks:
+            want = topk.topk_ref(x.cpu() if on_cpu else x, kk)
+            for key, fn in routes:
+                got = [t.to(want[0].device) for t in fn(x, kk)]
+                check(torch.equal(got[0], want[0])
+                      and torch.equal(got[1], want[1])
+                      and torch.equal(torch.signbit(got[0]),
+                                      torch.signbit(want[0])),
+                      f"{key} kernel != plain on {what}, k={kk}")
+                fin = torch.isfinite(want[0])
+                worst[key] = max(worst[key], float(
+                    (got[0][fin] - want[0][fin]).abs().max()))
+            log(f"[lm] (a) topk {list(x.shape)}, k={kk}, {what}: "
+                f"{' and '.join(k for k, _ in routes)} values (signs "
+                f"included) and ids bitwise equal to the plain version "
+                f"({int((want[1] < 0).sum())} unfilled slots, (+inf, -1) "
+                f"in both)")
+    del big, odd
     return worst
 
 
@@ -1609,29 +1760,48 @@ def lm_timing(router_neg, path_shape, g, reps: int = 5) -> dict:
 
     out = {}
     b, e = router_neg.shape
-    calls = {"ms": lambda: topk.topk_cuda(router_neg, LM_TOPK),
-             "plain_ms": lambda: topk.topk_ref(router_neg, LM_TOPK),
-             "library_ms": lambda: torch.topk(router_neg, LM_TOPK, dim=1,
-                                              largest=False)}
+    dec = router_neg[:LM_B].contiguous()                # a decode step's rows
+    routes = {"topk": topk.topk_short_cuda, "topk_stream": topk.topk_stream_cuda}
     # the router's calls are microseconds of device work: time them by
-    # their kernels (device_ms); CUDA events around a call would time the
-    # host's wrapper, printed beside for that reason
-    t = {k: device_ms(fn) for k, fn in calls.items()}
-    events = {k: median_ms(fn, reps) for k, fn in calls.items()}
+    # their kernels (device_ms), both kernels in turns; CUDA events around
+    # a call would time the host's wrapper, printed beside for that reason
+    dev_ms = in_turns({n: (lambda f=f: f(router_neg, LM_TOPK))
+                       for n, f in routes.items()})
+    dec_ms = in_turns({n: (lambda f=f: f(dec, LM_TOPK))
+                       for n, f in routes.items()})
+    lib = {"plain_ms": device_ms(lambda: topk.topk_ref(router_neg, LM_TOPK)),
+           "library_ms": device_ms(lambda: torch.topk(
+               router_neg, LM_TOPK, dim=1, largest=False))}
+    one = torch.zeros(1, device=DEVICE)
+    floor_ms = device_ms(lambda: one.add_(1))          # one trivial kernel
     nbytes = b * e * 4 + b * LM_TOPK * 8
-    t["bound_ms"], t["bound_by"] = bound(nbytes, b * e, FP32_FLOPS)
-    out["topk"] = t
-    # one CTA's 8 rows (a decode step's call): the launch and one warp's
-    # list upkeep
-    one = device_ms(lambda: topk.topk_cuda(router_neg[:8], LM_TOPK))
+    bound_ms, bound_by = bound(nbytes, b * e, FP32_FLOPS)
+    dec_bytes = LM_B * e * 4 + LM_B * LM_TOPK * 8
+    for name, fn in routes.items():
+        out[name] = dict(lib, ms=dev_ms[name], decode_ms=dec_ms[name],
+                         events_ms=median_ms(lambda: fn(router_neg, LM_TOPK),
+                                             reps),
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         decode_bound_ms=dec_bytes / HBM_BYTES_PER_S * 1e3,
+                         launch_floor_ms=floor_ms)
+    events = median_ms(lambda: torch.topk(router_neg, LM_TOPK, dim=1,
+                                          largest=False), reps)
     log(f"[lm] timing topk [{b}, {e}], k={LM_TOPK} (the router's rows), "
-        f"device time of its kernels: kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, library (torch.topk) {t['library_ms']:.4f} "
-        f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}: "
-        f"{nbytes / 1e6:.2f} MB); kernel at [8, {e}] (one CTA) {one:.4f} ms; "
-        f"CUDA events around one call (host wrapper included): kernel "
-        f"{events['ms']:.4f}, plain {events['plain_ms']:.4f}, library "
-        f"{events['library_ms']:.4f} ms")
+        f"device time of its kernels (in turns): select_k_short.cu "
+        f"{dev_ms['topk']:.4f} ms, select_k.cu {dev_ms['topk_stream']:.4f} "
+        f"ms ({dev_ms['topk_stream'] / dev_ms['topk']:.2f}x), plain "
+        f"{lib['plain_ms']:.4f} ms, library (torch.topk) "
+        f"{lib['library_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.2f} MB); CUDA events around one call (host wrapper "
+        f"included): select_k_short.cu {out['topk']['events_ms']:.4f}, "
+        f"select_k.cu {out['topk_stream']['events_ms']:.4f}, torch.topk "
+        f"{events:.4f} ms")
+    log(f"[lm] timing topk [{LM_B}, {e}], k={LM_TOPK} (a decode step's "
+        f"rows, one CTA), device time (in turns): select_k_short.cu "
+        f"{dec_ms['topk']:.4f} ms, select_k.cu {dec_ms['topk_stream']:.4f} "
+        f"ms; bound {dec_bytes / HBM_BYTES_PER_S * 1e3:.7f} ms (bytes: "
+        f"{dec_bytes} B); launch floor (device time of one trivial kernel, "
+        f"a 1-element add_) {floor_ms:.4f} ms")
     bh, T, hd = path_shape
     q, k, v = (torch.randn((bh, T, hd), generator=g, device=DEVICE).to(
         torch.bfloat16) for _ in range(3))
@@ -1856,17 +2026,19 @@ def lm_phase(seed: int) -> dict:
 
     # the main path: prefill, then greedy decode steps, counters around it
     torch.cuda.reset_peak_memory_stats()
-    topk.LAUNCHES = attention.TC_LAUNCHES = attention.FMA_LAUNCHES = 0
+    topk.SHORT_LAUNCHES = topk.LAUNCHES = 0
+    attention.TC_LAUNCHES = attention.FMA_LAUNCHES = 0
     t0 = time.perf_counter()
     logits, cache = prefill_step(model, {"inputs": prompts}, cache, cfg)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    per_prefill = (topk.LAUNCHES, attention.TC_LAUNCHES,
+    per_prefill = (topk.SHORT_LAUNCHES, topk.LAUNCHES, attention.TC_LAUNCHES,
                    attention.FMA_LAUNCHES)
     tok = logits[:, -1, :V].argmax(-1)[:, None]
     first_tok = tok.clone()
-    steps, gen = [], [tok]
+    steps, gen, per_step = [], [tok], set()
     for i in range(LM_STEPS):
+        before = topk.SHORT_LAUNCHES, topk.LAUNCHES
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out, cache = decode_step(model, tok, cache, LM_T + i, cfg)
@@ -1874,16 +2046,23 @@ def lm_phase(seed: int) -> dict:
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0) * 1e3)
         gen.append(tok)
-    launches = {"topk": topk.LAUNCHES, "flash_attention":
-                attention.TC_LAUNCHES, "flash_attention_fma":
-                attention.FMA_LAUNCHES}
+        per_step.add((topk.SHORT_LAUNCHES - before[0],
+                      topk.LAUNCHES - before[1]))
+    launches = {"topk": topk.SHORT_LAUNCHES, "topk_stream": topk.LAUNCHES,
+                "flash_attention": attention.TC_LAUNCHES,
+                "flash_attention_fma": attention.FMA_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
-    # (e) the path went through both kernels, once a layer, and every
-    # flash launch through the tensor-core kernel
-    check(per_prefill == (n_moe, n_attn, 0),
-          f"(e) a prefill launched (topk, flash tensor-core, flash FMA) "
-          f"{per_prefill}, expected ({n_moe}, {n_attn}, 0)")
-    check(launches == {"topk": n_moe * (1 + LM_STEPS),
+    # (e) the path went through both kernels, once a layer: every router
+    # launch through the short-row topk kernel and every flash launch
+    # through the tensor-core kernel
+    check(per_prefill == (n_moe, 0, n_attn, 0),
+          f"(e) a prefill launched (topk short-row, topk select_k.cu, flash "
+          f"tensor-core, flash FMA) {per_prefill}, expected ({n_moe}, 0, "
+          f"{n_attn}, 0)")
+    check(per_step == {(n_moe, 0)},
+          f"(e) a decode step launched (topk short-row, topk select_k.cu) "
+          f"{sorted(per_step)}, expected ({n_moe}, 0) every step")
+    check(launches == {"topk": n_moe * (1 + LM_STEPS), "topk_stream": 0,
                        "flash_attention": n_attn, "flash_attention_fma": 0},
           f"(e) launches over prefill and {LM_STEPS} decode steps {launches}")
     gen = torch.cat(gen, 1)
@@ -1895,8 +2074,9 @@ def lm_phase(seed: int) -> dict:
     st = np.array(steps)
     log(f"[lm] prefill {LM_B} x {LM_T} tokens: {prefill_ms:.2f} ms "
         f"({LM_B * LM_T / prefill_ms * 1e3:.1f} tokens/s); launches "
-        f"topk {per_prefill[0]}, flash_attention {per_prefill[1]} "
-        f"(tensor cores; FP32-FMA kernel {per_prefill[2]})")
+        f"topk {per_prefill[0]} (short rows; select_k.cu {per_prefill[1]}), "
+        f"flash_attention {per_prefill[2]} (tensor cores; FP32-FMA kernel "
+        f"{per_prefill[3]})")
     log(f"[lm] decode {LM_STEPS} greedy steps of {LM_B} at positions "
         f"{LM_T}..{LM_T + LM_STEPS - 1} (cache {LM_S}): p50 "
         f"{np.percentile(st, 50):.3f} ms, p99 {np.percentile(st, 99):.3f} ms "
@@ -1938,8 +2118,11 @@ def lm_phase(seed: int) -> dict:
     torch.cuda.empty_cache()
     lm_f32_checks(prompts, g)
     torch.cuda.empty_cache()
-    return {"topk": {"launches": launches["topk"], "err": err_topk,
+    return {"topk": {"launches": launches["topk"], "err": err_topk["topk"],
                      "timing": timing["topk"]},
+            "topk_stream": {"launches": launches["topk_stream"],
+                            "err": err_topk["topk_stream"],
+                            "timing": timing["topk_stream"]},
             "flash_attention": {"launches": launches["flash_attention"],
                                 "err": err_flash["tc"],
                                 "timing": timing["flash_attention"]},
@@ -2074,14 +2257,19 @@ def main(argv=None) -> int:
             t and {"ms": t["ldg_ms"], "plain_ms": t["plain_ms"],
                    "bound_ms": t["bound_ms"]}, "bytes"))
     pq = quant["pq"] if quant else None
-    for name, replaces in (("pq_topk", "src/repro/kernels/qdist.py:310"),
-                           ("pq_adc", "src/repro/kernels/qdist.py:240")):
+    for name, source, replaces in (
+            ("pq_topk", csrc + "pq_topk_smem.cu",
+             "src/repro/kernels/qdist.py:310"),
+            ("pq_topk_v1", qsrc, "src/repro/kernels/qdist.py:310"),
+            ("pq_adc", qsrc, "src/repro/kernels/qdist.py:240")):
         t = pq and pq["timing"][name]
-        # pq_adc is on no path of the system (the exact backend fuses the
-        # top-k); it runs only against its plain version
+        # the exact PQ path launches only pq_topk_smem.cu (pq_phase checks
+        # 0 launches of qdist.cu's pq_topk); pq_adc is on no path of the
+        # system (the exact backend fuses the top-k)
         launches = pq["launches"] if pq and name == "pq_topk" else 0
-        rows.append(kernel_row(name, qsrc, replaces, launches, kern.get(name),
-                               t, t["bound_by"] if t else "operations"))
+        rows.append(kernel_row(name, source, replaces, launches,
+                               kern.get(name), t,
+                               t["bound_by"] if t else "operations"))
     for name, source, replaces in (
             ("l2topk", "l2topk_tc.cu", "src/repro/kernels/l2topk.py:65"),
             ("l2topk_fma", "l2topk.cu", "src/repro/kernels/l2topk.py:65"),
@@ -2097,7 +2285,10 @@ def main(argv=None) -> int:
                                sc["launches"] if sc else 0, sc and sc["err"],
                                t, t["bound_by"] if t else "operations"))
     for name, source, replaces, bound_by in (
-            ("topk", "select_k.cu", "src/repro/kernels/topk.py:78", "bytes"),
+            ("topk", "select_k_short.cu", "src/repro/kernels/topk.py:78",
+             "bytes"),
+            ("topk_stream", "select_k.cu", "src/repro/kernels/topk.py:78",
+             "bytes"),
             ("flash_attention", "flash_attention_tc.cu",
              "src/repro/kernels/attention.py:79", "operations"),
             ("flash_attention_fma", "flash_attention.cu",

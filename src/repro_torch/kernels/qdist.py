@@ -50,9 +50,19 @@ finite distance fills (fewer than k rows, or padding rows) holds
 size; the finite slots agree.
 
 `*_ref` are the plain versions: the CPU path and the yardstick the
-kernels are compared with on the card. `pq_adc_cuda` / `pq_topk_cuda`
-launch `csrc/qdist.cu` (built by `_build.py`) and count their launches in
-`ADC_LAUNCHES` / `TOPK_LAUNCHES`. `ops.*` pick one by the tensors' device.
+kernels are compared with on the card. `pq_adc_cuda` launches
+`csrc/qdist.cu` and counts in `ADC_LAUNCHES`. `pq_topk_cuda` picks one of
+two kernels by shape and alignment (`pq_topk_route`), never by value:
+
+- M in {16, 32, 64}, 16-byte aligned codes and xpad, k <= 64 ->
+  `pq_topk_smem_cuda`, `csrc/pq_topk_smem.cu` (queries across lanes over
+  interleaved tables, code rows staged by TMA bulk copies, lists in
+  registers), counted in `TOPK_SMEM_LAUNCHES`;
+- the rest -> `pq_topk_v1_cuda`, `csrc/qdist.cu` (a thread a row, lists in
+  local memory), counted in `TOPK_LAUNCHES`.
+
+All are built by `_build.py`. `ops.*` pick the CUDA or the plain path by
+the tensors' device.
 """
 
 from __future__ import annotations
@@ -77,17 +87,21 @@ from repro_torch.kernels.l2topk import (
     splits_for,
 )
 
-__all__ = ["ADC_LAUNCHES", "TOPK_LAUNCHES", "L2DIST_Q_LAUNCHES",
+__all__ = ["ADC_LAUNCHES", "TOPK_LAUNCHES", "TOPK_SMEM_LAUNCHES",
+           "L2DIST_Q_LAUNCHES",
            "L2DIST_Q_TC_LAUNCHES", "L2TOPK_Q_LAUNCHES",
            "L2TOPK_Q_TC_LAUNCHES", "MAX_K", "l2dist_q_ref", "l2dist_q_cuda",
            "l2dist_q_fma_cuda", "l2dist_q_tc_cuda", "l2topk_q_ref",
            "l2topk_q_cuda", "l2topk_q_fma_cuda", "l2topk_q_tc_cuda",
            "pq_adc_ref", "pq_topk_ref", "pq_adc_cuda", "pq_topk_cuda",
-           "takes_tensor_cores", "takes_tensor_cores_dist"]
+           "pq_topk_route", "pq_topk_smem_bytes", "pq_topk_smem_cuda",
+           "pq_topk_splits", "pq_topk_v1_cuda", "takes_tensor_cores",
+           "takes_tensor_cores_dist"]
 
 # launches of each CUDA kernel since import (or since a caller reset them)
 ADC_LAUNCHES = 0
-TOPK_LAUNCHES = 0
+TOPK_LAUNCHES = 0                 # csrc/qdist.cu's pq_topk
+TOPK_SMEM_LAUNCHES = 0            # csrc/pq_topk_smem.cu
 L2DIST_Q_LAUNCHES = 0             # csrc/l2dist.cu over code rows
 L2DIST_Q_TC_LAUNCHES = 0          # csrc/l2dist_q_tc.cu
 L2TOPK_Q_LAUNCHES = 0             # csrc/l2topk.cu over code rows
@@ -102,6 +116,13 @@ MAX_K, MAX_SPLITS, MAX_M = 64, 32, 128
 _THREADS = 256
 # CTAs that fill the card: a few per SM of the H100's 132
 _ADC_CTAS, _TOPK_CTAS = 8 * 132, 4 * 132
+
+# csrc/pq_topk_smem.cu: the subspace counts it is compiled for (128 / M
+# queries a CTA, 128 KB of tables), its warps and rows a bulk copy, and
+# the dynamic shared memory a CTA may take on the H100
+SMEM_M = (16, 32, 64)
+_SMEM_WARPS, _SMEM_TILE_ROWS = 16, 32
+SMEM_BUDGET = 232_448
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +178,11 @@ _SIGNATURES = {
     "repro_pq_adc": (ctypes.c_int, [_P] * 4 + [_I] * 7 + [_P]),
     "repro_pq_topk": (ctypes.c_int, [_P] * 7 + [_I] * 8 + [_P]),
     "repro_qdist_error_string": (ctypes.c_char_p, [_I]),
+}
+_SMEM_SIGNATURES = {
+    "repro_pq_topk_smem": (ctypes.c_int, [_P] * 7 + [_I] * 7 + [_P]),
+    "repro_pq_topk_smem_bytes": (ctypes.c_int, [_I]),
+    "repro_pq_topk_smem_error_string": (ctypes.c_char_p, [_I]),
 }
 _TC_SIGNATURES = {
     "repro_l2topk_q_tc": (ctypes.c_int,
@@ -239,7 +265,7 @@ def pq_adc_cuda(luts, codes, xpad=None):
     return out
 
 
-def pq_topk_cuda(luts, codes, xpad=None, *, k: int = 10):
+def pq_topk_v1_cuda(luts, codes, xpad=None, *, k: int = 10):
     """Launch `csrc/qdist.cu`'s fused ADC top-k on the current stream;
     returns (dists [Bq, k] float32, ids [Bq, k] int32). k <= 64; raises on
     any other device, dtype, shape or layout."""
@@ -265,6 +291,89 @@ def pq_topk_cuda(luts, codes, xpad=None, *, k: int = 10):
     _raise_on(lib, err, "pq_topk")
     TOPK_LAUNCHES += 1
     return out_d, out_i
+
+
+def pq_topk_smem_bytes(m: int) -> int:
+    """Dynamic shared memory of a `csrc/pq_topk_smem.cu` CTA at m
+    subspaces, its `Layout<M>` in the same order: 128 / m queries' tables,
+    each warp's ring of code and xpad stages (3 stages at m <= 32, else
+    2), a mbarrier a stage, a list count a (query, warp), a buffer of 32
+    (distance, row) candidates a (warp, query) and a 64-entry merge
+    scratch a warp."""
+    kq, stages = 128 // m, 3 if m <= 32 else 2
+    ring = _SMEM_WARPS * stages
+    return (kq * m * 256 * 4 + ring * _SMEM_TILE_ROWS * m
+            + ring * _SMEM_TILE_ROWS * 4 + ring * 8 + kq * _SMEM_WARPS * 4
+            + _SMEM_WARPS * kq * 32 * 8 + _SMEM_WARPS * MAX_K * 8)
+
+
+def pq_topk_route(luts, codes, xpad=None, k: int = 10) -> bool:
+    """Whether `pq_topk_cuda` gives these operands to
+    `csrc/pq_topk_smem.cu`: float32 tables [Bq, M, 256] with M in `SMEM_M`
+    and a CTA within `SMEM_BUDGET`, uint8 codes [Bx, M] with Bx >= 1,
+    1 <= k <= 64, Bq within the grid, and 16-byte aligned codes and xpad
+    (TMA bulk copies move 16-byte multiples between 16-byte aligned
+    addresses; every copy is whole rows of M bytes, M % 16 == 0). Reads
+    shapes, dtypes and addresses only, never values."""
+    if luts.dim() != 3 or codes.dim() != 2:
+        return False
+    bq, m = luts.shape[0], luts.shape[1]
+    return (m in SMEM_M and pq_topk_smem_bytes(m) <= SMEM_BUDGET
+            and luts.dtype == torch.float32 and codes.dtype == torch.uint8
+            and codes.shape[0] > 0 and 0 < k <= MAX_K
+            and -(-bq // (128 // m)) <= 65535
+            and codes.data_ptr() % 16 == 0
+            and (xpad is None or xpad.data_ptr() % 16 == 0))
+
+
+def pq_topk_splits(bq: int, bx: int, m: int) -> tuple[int, int]:
+    """(S, chunk) of `csrc/pq_topk_smem.cu`: one CTA an SM, so S splits of
+    `chunk` rows (whole 32-row tiles) make the grid of ceil(Bq / (128 /
+    m)) query groups x S come near the H100's 132 SMs without passing
+    them, at most `MAX_SPLITS` and no empty split."""
+    groups = -(-bq // (128 // m))
+    tiles = -(-bx // _SMEM_TILE_ROWS)
+    splits = max(1, min(MAX_SPLITS, 132 // groups, tiles))
+    chunk = -(-tiles // splits) * _SMEM_TILE_ROWS
+    return -(-bx // chunk), chunk
+
+
+def pq_topk_smem_cuda(luts, codes, xpad=None, *, k: int = 10):
+    """Launch `csrc/pq_topk_smem.cu` and its split merge on the current
+    stream; returns (dists [Bq, k] float32, ids [Bq, k] int32). Raises on
+    operands `pq_topk_route` refuses, as `pq_topk_v1_cuda` does, and if
+    the launch fails."""
+    global TOPK_SMEM_LAUNCHES
+    bq, bx, m, _, _, dev = _launch_shape(luts, codes, xpad)
+    if not pq_topk_route(luts, codes, xpad, k):
+        raise ValueError(f"pq_topk: the shared-memory kernel takes M in "
+                         f"{SMEM_M}, k <= {MAX_K}, Bx >= 1 and 16-byte "
+                         f"aligned codes and xpad; got M={m}, k={k}, Bx={bx}")
+    splits, chunk = pq_topk_splits(bq, bx, m)
+    part_d = torch.empty((bq, splits, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((bq, splits, k), dtype=torch.int32, device=dev)
+    out_d = torch.empty((bq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
+    lib = _build.load("pq_topk_smem", _SMEM_SIGNATURES)
+    err = lib.repro_pq_topk_smem(
+        luts.data_ptr(), codes.data_ptr(),
+        None if xpad is None else xpad.data_ptr(), part_d.data_ptr(),
+        part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+        dev.index or 0, bq, bx, m, k, splits, chunk,
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, "repro_pq_topk_smem_error_string", err,
+             "pq_topk (shared memory)")
+    TOPK_SMEM_LAUNCHES += 1
+    return out_d, out_i
+
+
+def pq_topk_cuda(luts, codes, xpad=None, *, k: int = 10):
+    """(dists [Bq, k] float32, ids [Bq, k] int32) from one of the two CUDA
+    kernels, chosen by shape and alignment: `pq_topk_smem_cuda` where
+    `pq_topk_route` holds, else `pq_topk_v1_cuda`. Raises as they do."""
+    if pq_topk_route(luts, codes, xpad, k):
+        return pq_topk_smem_cuda(luts, codes, xpad, k=k)
+    return pq_topk_v1_cuda(luts, codes, xpad, k=k)
 
 
 def takes_tensor_cores(queries, xs) -> bool:

@@ -1,6 +1,6 @@
 """Per-row k smallest of a matrix (the reference's `topk_pallas`, which
 the MoE router runs when `MoEConfig.router_use_kernel` is set): the plain
-PyTorch version and the wrapper of its CUDA kernel.
+PyTorch version and the wrappers of its two CUDA kernels.
 
     topk: x [B, N] -> (values [B, k] float32 ascending, ids [B, k] int32)
 
@@ -9,13 +9,22 @@ then by column: among equal values the lower column wins, as the
 reference's `_select_k` and `lax.top_k` give. A slot that no entry below
 +inf fills (N < k, or +inf / NaN entries) holds (+inf, -1); there the
 reference returns ids that depend on its block size, and the other slots
-agree (ROADMAP.md Queue 3). The kernel takes 1 <= k <= 64 and raises
+agree (ROADMAP.md Queue 3). The kernels take 1 <= k <= 64 and raise
 above it; the plain version takes any k.
 
-`topk_ref` is the plain version: the CPU path and the yardstick the kernel
-is compared with on the card (a stable sort of each row). `topk_cuda`
-launches `csrc/select_k.cu` (built by `_build.py`) and counts its launches
-in `LAUNCHES`. `ops.topk` picks one by the tensor's device.
+`topk_ref` is the plain version: the CPU path and the yardstick the
+kernels are compared with on the card (a stable sort of each row).
+`topk_cuda` picks a kernel by shape, never by value:
+
+- rows of at most `SHORT_MAX_N` columns (`takes_short_rows`; the MoE
+  router's [S, 64]) -> `topk_short_cuda`, `csrc/select_k_short.cu` (a
+  warp a row, each entry written at its rank), counted in
+  `SHORT_LAUNCHES`;
+- longer rows -> `topk_stream_cuda`, `csrc/select_k.cu` (warps stream a
+  row into a sorted list), counted in `LAUNCHES`.
+
+Both are built by `_build.py`; a failed build or launch raises.
+`ops.topk` picks the CUDA or the plain path by the tensor's device.
 """
 
 from __future__ import annotations
@@ -27,12 +36,18 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.l2dist import raise_on
 
-__all__ = ["LAUNCHES", "MAX_K", "topk_ref", "topk_cuda", "warps_per_row"]
+__all__ = ["LAUNCHES", "MAX_K", "SHORT_LAUNCHES", "SHORT_MAX_N",
+           "takes_short_rows", "topk_cuda", "topk_ref", "topk_short_cuda",
+           "topk_stream_cuda", "warps_per_row"]
 
-# launches of the CUDA kernel since import (or since a caller reset it)
-LAUNCHES = 0
+# launches of each CUDA kernel since import (or since a caller reset them)
+LAUNCHES = 0                      # csrc/select_k.cu
+SHORT_LAUNCHES = 0                # csrc/select_k_short.cu
 
 MAX_K = 64                        # csrc/select_k.cu keeps a warp's list
+# the widest row csrc/select_k_short.cu takes: 8 entries a lane, 2 KB of
+# keys a warp in shared memory
+SHORT_MAX_N = 256
 _INF = float("inf")
 
 
@@ -60,19 +75,27 @@ def warps_per_row(n: int) -> int:
     return w
 
 
+def takes_short_rows(n: int, k: int) -> bool:
+    """Whether `topk_cuda` gives rows of n columns to the short-row kernel
+    (`csrc/select_k_short.cu`): 1 <= n <= `SHORT_MAX_N` and 1 <= k <=
+    `MAX_K`. Longer rows go to `csrc/select_k.cu`."""
+    return 0 < n <= SHORT_MAX_N and 0 < k <= MAX_K
+
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "repro_select_k": (ctypes.c_int, [_P, _P, _P, _I, _L, _L, _I, _I, _P]),
     "repro_select_k_error_string": (ctypes.c_char_p, [_I]),
 }
+_SHORT_SIGNATURES = {
+    "repro_select_k_short": (ctypes.c_int, [_P, _P, _P, _I, _L, _I, _I, _P]),
+    "repro_select_k_short_error_string": (ctypes.c_char_p, [_I]),
+}
 
 
-def topk_cuda(x, k: int):
-    """Launch `csrc/select_k.cu` on the current stream: (values [B, k]
-    float32, ids [B, k] int32). Floating x is cast to float32 as the
-    reference's kernel does; 1 <= k <= 64; raises on any other device,
-    dtype, shape or layout."""
-    global LAUNCHES
+def _operand(x, k: int):
+    """x as a contiguous float32 CUDA matrix with columns, checked; raises
+    on any other device, dtype, shape or layout, or k outside 1..64."""
     if x.device.type != "cuda":
         raise ValueError(f"topk: the kernel takes CUDA tensors, got {x.device}")
     if x.dim() != 2 or not x.is_floating_point():
@@ -83,11 +106,26 @@ def topk_cuda(x, k: int):
     x = x.float()
     if not x.is_contiguous():
         raise ValueError("topk: x must be contiguous")
-    (b, n), dev = x.shape, x.device
-    if n == 0:
+    if x.shape[1] == 0:
         raise ValueError("topk: x has no columns")
-    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    return x
+
+
+def _outputs(x, k: int):
+    b, dev = x.shape[0], x.device
+    return (torch.empty((b, k), dtype=torch.float32, device=dev),
+            torch.empty((b, k), dtype=torch.int32, device=dev))
+
+
+def topk_stream_cuda(x, k: int):
+    """Launch `csrc/select_k.cu` on the current stream: (values [B, k]
+    float32, ids [B, k] int32). Floating x is cast to float32 as the
+    reference's kernel does; 1 <= k <= 64; raises on any other device,
+    dtype, shape or layout."""
+    global LAUNCHES
+    x = _operand(x, k)
+    (b, n), dev = x.shape, x.device
+    out_d, out_i = _outputs(x, k)
     lib = _build.load("select_k", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.repro_select_k(x.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
@@ -95,3 +133,33 @@ def topk_cuda(x, k: int):
     raise_on(lib, "repro_select_k_error_string", err, "topk")
     LAUNCHES += 1
     return out_d, out_i
+
+
+def topk_short_cuda(x, k: int):
+    """Launch `csrc/select_k_short.cu` on the current stream: (values
+    [B, k] float32, ids [B, k] int32). Raises as `topk_stream_cuda` does,
+    and on rows that `takes_short_rows` refuses."""
+    global SHORT_LAUNCHES
+    x = _operand(x, k)
+    (b, n), dev = x.shape, x.device
+    if not takes_short_rows(n, k):
+        raise ValueError(f"topk: the short-row kernel takes 1..{SHORT_MAX_N} "
+                         f"columns, got {n}")
+    out_d, out_i = _outputs(x, k)
+    lib = _build.load("select_k_short", _SHORT_SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.repro_select_k_short(x.data_ptr(), out_d.data_ptr(),
+                                   out_i.data_ptr(), dev.index or 0, b, n, k,
+                                   stream)
+    raise_on(lib, "repro_select_k_short_error_string", err, "topk (short rows)")
+    SHORT_LAUNCHES += 1
+    return out_d, out_i
+
+
+def topk_cuda(x, k: int):
+    """(values [B, k] float32, ids [B, k] int32) from one of the two CUDA
+    kernels, chosen by shape: `topk_short_cuda` where `takes_short_rows`
+    holds, else `topk_stream_cuda`. Raises as they do."""
+    if x.dim() == 2 and takes_short_rows(x.shape[1], k):
+        return topk_short_cuda(x, k)
+    return topk_stream_cuda(x, k)

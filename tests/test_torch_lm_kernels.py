@@ -123,6 +123,49 @@ def test_topk_k_above_n_and_nan():
     assert np.isinf(gv[0, 2:]).all() and np.isinf(gv[1]).all()
 
 
+def test_topk_signed_zeros_nan_and_minus_inf_against_reference():
+    """-0.0 and +0.0 tie by column and keep their signs; -inf comes first.
+    The reference's `_select_k` takes `jnp.argmin`, which picks a NaN
+    first; the port never selects NaN (as it never selects +inf), so its
+    row is the reference's with the NaN slots taken out and (+inf, -1)
+    after (ROADMAP.md Queue 3)."""
+    x = np.array([[0.0, -0.0, 1.0, -np.inf, np.nan, -0.0, 0.0, 2.0],
+                  [np.nan, 3.0, np.nan, -1.0, -0.0, 0.0, np.inf, -np.inf],
+                  [-0.0, 0.0, -0.0, 0.0, -np.inf, -np.inf, 0.5, -0.5]],
+                 np.float32)
+    x = np.tile(x, (1, 8))                       # 64 columns: the router's
+    x[:, 8:] = np.abs(x[:, 8:]) + 4.0            # later copies rank last
+    x[1, 8:] = np.nan
+    k = 9
+    wv, wi = _ref_topk(x, 64)                    # the whole row, in order
+    gv, gi = _port_topk(x, k)
+    for r in range(len(x)):
+        keep = np.isfinite(wv[r]) | (wv[r] == -np.inf)
+        n = min(k, int(keep.sum()))
+        np.testing.assert_array_equal(gi[r, :n], wi[r, keep][:n])
+        np.testing.assert_array_equal(gv[r, :n], wv[r, keep][:n])
+        np.testing.assert_array_equal(np.signbit(gv[r, :n]),
+                                      np.signbit(wv[r, keep][:n]))
+        assert (gi[r, n:] == -1).all() and np.isinf(gv[r, n:]).all()
+    assert np.isnan(wv[1, :2]).all()             # the reference takes NaN
+    np.testing.assert_array_equal(gi[1, :5], [7, 3, 4, 5, 1])
+    np.testing.assert_array_equal(gi[2, :6], [4, 5, 7, 0, 1, 2])
+    np.testing.assert_array_equal(np.signbit(gv[2, 3:6]), [True, False, True])
+
+
+@pytest.mark.parametrize("n,k,short", [
+    (1, 1, True), (33, 6, True), (64, 6, True), (64, 64, True),
+    (256, 64, True), (256, 1, True), (257, 6, False), (2048, 10, False),
+    (64, 0, False), (64, 65, False),
+])
+def test_topk_short_row_rule(n, k, short):
+    """Rows of at most SHORT_MAX_N = 256 columns (8 entries a lane) go to
+    select_k_short.cu, longer ones to select_k.cu; k outside 1..64 goes to
+    neither kernel (select_k.cu's wrapper raises)."""
+    assert topk.SHORT_MAX_N == 256
+    assert topk.takes_short_rows(n, k) is short
+
+
 def test_topk_warps_per_row():
     assert [topk.warps_per_row(n) for n in (1, 64, 2047, 2048, 4096, 8192,
                                              10**6)] == [1, 1, 1, 2, 4, 8, 8]
@@ -242,8 +285,9 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     x = torch.from_numpy(_gauss((3, 40), 1))
     ops.topk(x, 4)
     ops.flash_attention(x[None], x[None], x[None])
-    with pytest.raises(ValueError, match="CUDA"):
-        topk.topk_cuda(x, 4)
+    for fn in (topk.topk_cuda, topk.topk_short_cuda, topk.topk_stream_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, 4)
     with pytest.raises(ValueError, match="CUDA"):
         attention.flash_attention_cuda(x[None], x[None], x[None])
 
@@ -280,6 +324,63 @@ def test_cuda_topk_matches_plain_bitwise(b, n, k):
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]), (what, b, n, k)
         assert torch.equal(got[1], want[1]), (what, b, n, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 64, 256])
+@pytest.mark.parametrize("k", [1, 6, 64])
+def test_cuda_topk_both_routes_match_plain_bitwise(n, k):
+    """select_k_short.cu and select_k.cu on the same short rows, bitwise
+    equal to the plain version (computed on the CPU, whose sort ties -0.0
+    with +0.0): Gaussian rows, ties, NaN and +/-inf, signed zeros; each
+    launch on its own counter, and topk_cuda on the short-row kernel."""
+    dev = _cuda()
+    g = np.random.default_rng(n * 100 + k)
+    b = 37
+    cases = {"gauss": g.normal(size=(b, n)),
+             "ties": g.integers(0, 5, size=(b, n)).astype(np.float64)}
+    pad = g.normal(size=(b, n))
+    pad[:, ::3] = np.inf
+    pad[0, :] = np.inf
+    pad[-1, 1::7] = np.nan
+    pad[2, ::5] = -np.inf
+    cases["inf and nan"] = pad
+    cases["signed zeros"] = g.choice([0.0, -0.0, 1.0, -1.0, np.nan],
+                                     size=(b, n))
+    for what, xn in cases.items():
+        x = torch.from_numpy(xn.astype(np.float32))
+        want = topk.topk_ref(x, k)
+        xd = x.to(dev)
+        before = topk.SHORT_LAUNCHES, topk.LAUNCHES
+        outs = [topk.topk_short_cuda(xd, k), topk.topk_stream_cuda(xd, k),
+                topk.topk_cuda(xd, k)]
+        torch.cuda.synchronize()
+        assert (topk.SHORT_LAUNCHES - before[0],
+                topk.LAUNCHES - before[1]) == (2, 1)
+        for got in outs:
+            gv, gi = (t.cpu() for t in got)
+            assert torch.equal(gv, want[0]), (what, n, k)
+            assert torch.equal(gi, want[1]), (what, n, k)
+            assert torch.equal(torch.signbit(gv), torch.signbit(want[0]))
+
+
+@pytest.mark.cuda
+def test_cuda_topk_picks_the_kernel_by_shape():
+    """The router's [16,384, 64] rows and a decode step's [8, 64] go to
+    select_k_short.cu; [4, 257] and [3, 5000] to select_k.cu."""
+    dev = _cuda()
+    for (b, n), short in (((16384, 64), True), ((8, 64), True),
+                          ((4, 257), False), ((3, 5000), False)):
+        x = torch.randn((b, n), device=dev)
+        before = topk.SHORT_LAUNCHES, topk.LAUNCHES
+        got = topk.topk_cuda(x, 6)
+        want = topk.topk_ref(x, 6)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert (topk.SHORT_LAUNCHES - before[0],
+                topk.LAUNCHES - before[1]) == ((1, 0) if short else (0, 1))
+    with pytest.raises(ValueError, match="short-row"):
+        topk.topk_short_cuda(torch.randn((2, 257), device=dev), 6)
 
 
 @pytest.mark.cuda

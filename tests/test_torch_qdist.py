@@ -10,8 +10,11 @@ Where fewer than k rows are finite, the reference's +inf slots carry ids
 that depend on its block size; the port's hold -1, and only the finite
 slots are compared.
 
-The CUDA kernels against the plain versions run only where there is a
-card (the `cuda` marker); here they skip.
+`pq_topk_cuda` picks one of two kernels by shape and alignment
+(`pq_topk_route`): the rule, the shared-memory mirror of
+`csrc/pq_topk_smem.cu` and its splits are checked here. The CUDA kernels
+against the plain versions run only where there is a card (the `cuda`
+marker); here they skip.
 """
 
 import numpy as np
@@ -114,6 +117,96 @@ def test_pq_topk_tail_when_fewer_than_k_rows(n_valid, xpad_rows):
     assert (gi[:, n_valid:] == -1).all()
 
 
+@pytest.mark.parametrize("bq,bx,k", [(9, 2083, 1), (9, 2083, 10),
+                                     (9, 2083, 64)])
+def test_pq_topk_m16_ragged_matches_reference_bitwise(bq, bx, k):
+    """M = 16 (the shared-memory kernel's main shape) with Bq not a multiple
+    of its 8 queries a CTA and Bx not a multiple of its 32-row tiles or of
+    the 4-row xpad copies; integer tables in [0, 8) (ties) and 20 padding
+    rows."""
+    rng = np.random.default_rng(16)
+    luts = rng.integers(0, 8, size=(bq, 16, 256)).astype(np.float32)
+    codes = rng.integers(0, 256, size=(bx, 16)).astype(np.uint8)
+    xpad = np.zeros(bx, np.float32)
+    xpad[-20:] = np.inf
+    wv, wi = _ref_topk(luts, codes, xpad, k=k)
+    gv, gi = ops.pq_topk(*map(torch.from_numpy, (luts, codes, xpad)), k=k)
+    assert gi.numpy().max() < bx - 20
+    np.testing.assert_array_equal(gv.numpy(), wv)
+    np.testing.assert_array_equal(gi.numpy(), wi)
+
+
+def _aligned(shape, dtype, offset=0):
+    """A tensor of `shape` whose data starts `offset` elements into a
+    256-byte aligned buffer."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + offset + 64, dtype=dtype)
+    return buf[offset:offset + n].view(shape)
+
+
+@pytest.mark.parametrize("case,taken", [
+    ("m16", True), ("m32", True), ("m64", True), ("m16 xpad", True),
+    ("m8", False), ("m48", False), ("m128", False), ("m4", False),
+    ("codes unaligned", False), ("xpad unaligned", False), ("k=0", False),
+    ("k=65", False), ("no rows", False), ("int8 codes", False),
+])
+def test_pq_topk_route_rule(case, taken):
+    """The shared-memory kernel takes M in {16, 32, 64} (whole 16-byte
+    rows; 128 / M queries' tables in 128 KB), 1 <= k <= 64, Bx >= 1 and
+    16-byte aligned codes and xpad; everything else goes to qdist.cu."""
+    m = int(case.split()[0][1:]) if case[0] == "m" else 16
+    bx = 0 if case == "no rows" else 100
+    k = {"k=0": 0, "k=65": 65}.get(case, 10)
+    luts = torch.zeros((3, m, 256))
+    codes = _aligned((bx, m), torch.int8 if case == "int8 codes"
+                     else torch.uint8, 1 if case == "codes unaligned" else 0)
+    xpad = None
+    if "xpad" in case:
+        xpad = _aligned((bx,), torch.float32, 1 if "unaligned" in case else 0)
+    assert codes.data_ptr() % 16 == (1 if case == "codes unaligned" else 0)
+    assert qdist.pq_topk_route(luts, codes, xpad, k) is taken
+
+
+def test_pq_topk_smem_bytes_hand_count():
+    """The Python mirror of pq_topk_smem.cu's layout against a hand count:
+    tables, 16 warps' stage rings of 32-row code and xpad tiles, a
+    mbarrier a stage, a count a (query, warp), 32 buffered 8-byte
+    candidates a (warp, query), a 64-entry merge scratch a warp; every M
+    fits the H100's 232,448 bytes, one CTA an SM."""
+    tables = 128 * 1024                        # 128 / M queries x M KB
+    lists = 16 * 64 * 8
+    assert qdist.pq_topk_smem_bytes(16) == (
+        tables + 16 * 3 * 32 * 16 + 16 * 3 * 128 + 16 * 3 * 8 + 8 * 16 * 4
+        + 16 * 8 * 32 * 8 + lists)
+    assert qdist.pq_topk_smem_bytes(16) == 203_648
+    assert qdist.pq_topk_smem_bytes(32) == (
+        tables + 16 * 3 * 32 * 32 + 16 * 3 * 128 + 16 * 3 * 8 + 4 * 16 * 4
+        + 16 * 4 * 32 * 8 + lists)
+    assert qdist.pq_topk_smem_bytes(64) == (
+        tables + 16 * 2 * 32 * 64 + 16 * 2 * 128 + 16 * 2 * 8 + 2 * 16 * 4
+        + 16 * 2 * 32 * 8 + lists)
+    for m in qdist.SMEM_M:
+        assert 2 * qdist.pq_topk_smem_bytes(m) > qdist.SMEM_BUDGET
+        assert qdist.pq_topk_smem_bytes(m) <= qdist.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("bq,bx,m", [(256, 32768, 16), (256, 1_000_000, 16),
+                                     (8, 100, 16), (3, 33, 32), (9, 2083, 16),
+                                     (256, 70001, 64), (2000, 5000, 32),
+                                     (1, 1, 16)])
+def test_pq_topk_splits(bq, bx, m):
+    """Whole 32-row tiles a split, no empty split, and query groups x
+    splits within the card's 132 SMs (or one split where the groups pass
+    them)."""
+    s, chunk = qdist.pq_topk_splits(bq, bx, m)
+    groups = -(-bq // (128 // m))
+    assert chunk % 32 == 0 and 1 <= s <= qdist.MAX_SPLITS
+    assert (s - 1) * chunk < bx <= s * chunk
+    assert s == 1 or groups * s <= 132
+    if (bq, bx, m) == (256, 32768, 16):
+        assert (s, chunk) == (4, 8192)           # 128 CTAs of 8 queries
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """ops dispatch on the device: CPU -> plain version; the CUDA wrappers
     refuse CPU tensors instead of falling back."""
@@ -170,9 +263,73 @@ def test_cuda_pq_topk_matches_plain_version(bq, bx, m, k):
     luts, codes = _luts_codes(bq, bx, m, seed=22, hi=4.0)
     tl = torch.from_numpy(np.rint(luts)).to(dev)      # many ties
     tc = torch.from_numpy(codes).to(dev)
-    launches = qdist.TOPK_LAUNCHES
+    launches = qdist.TOPK_LAUNCHES, qdist.TOPK_SMEM_LAUNCHES
     gv, gi = qdist.pq_topk_cuda(tl, tc, k=k)
     wv, wi = qdist.pq_topk_ref(tl, tc, k=k)
     torch.cuda.synchronize()
     assert torch.equal(gv, wv) and torch.equal(gi, wi)
-    assert qdist.TOPK_LAUNCHES == launches + 1
+    smem = qdist.pq_topk_route(tl, tc, None, k)
+    assert (qdist.TOPK_LAUNCHES - launches[0],
+            qdist.TOPK_SMEM_LAUNCHES - launches[1]) == (
+        (0, 1) if smem else (1, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bq,bx,m,k", [
+    (3, 5, 16, 10), (9, 2083, 16, 1), (9, 2083, 16, 10), (9, 2083, 16, 64),
+    (256, 32768, 16, 10), (5, 777, 32, 10), (17, 4100, 32, 64),
+    (3, 1000, 64, 10), (4, 2049, 64, 64), (1, 31, 16, 64),
+])
+@pytest.mark.parametrize("with_xpad", [False, True])
+def test_cuda_pq_topk_both_routes_match_plain_version(bq, bx, m, k,
+                                                      with_xpad):
+    """Both kernels bitwise equal to the plain version at the
+    shared-memory kernel's edges: Bx < k, ragged Bq (not a multiple of
+    128 / M) and Bx (not a multiple of 32 or 4), k in {1, 10, 64}, every M
+    it takes, integer tables in [0, 8) (ties), +inf padding rows."""
+    dev = _cuda()
+    rng = np.random.default_rng(bq * bx + m + k)
+    tl = torch.from_numpy(rng.integers(0, 8, size=(bq, m, 256)).astype(
+        np.float32)).to(dev)
+    tc = torch.from_numpy(rng.integers(0, 256, size=(bx, m)).astype(
+        np.uint8)).to(dev)
+    xpad = None
+    if with_xpad:
+        xpad = torch.zeros(bx, device=dev)
+        xpad[bx - bx // 5:] = float("inf")
+    assert qdist.pq_topk_route(tl, tc, xpad, k)
+    wv, wi = qdist.pq_topk_ref(tl, tc, xpad, k=k)
+    launches = qdist.TOPK_SMEM_LAUNCHES
+    for fn in (qdist.pq_topk_smem_cuda, qdist.pq_topk_v1_cuda,
+               qdist.pq_topk_cuda):
+        gv, gi = fn(tl, tc, xpad, k=k)
+        torch.cuda.synchronize()
+        assert torch.equal(gv, wv) and torch.equal(gi, wi), fn.__name__
+    assert qdist.TOPK_SMEM_LAUNCHES == launches + 2
+
+
+@pytest.mark.cuda
+def test_cuda_pq_topk_routes_by_shape_and_the_layout_mirror():
+    """M = 8 and unaligned codes go to qdist.cu, M = 16 to the shared-memory
+    kernel; the kernel's own byte count equals the Python mirror."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    lib = _build.load("pq_topk_smem", qdist._SMEM_SIGNATURES)
+    for m in qdist.SMEM_M:
+        assert lib.repro_pq_topk_smem_bytes(m) == qdist.pq_topk_smem_bytes(m)
+    assert lib.repro_pq_topk_smem_bytes(48) == 0
+    buf = torch.zeros(16 * 101, dtype=torch.uint8, device=dev)
+    for m, codes, smem in ((8, buf[:800].view(100, 8), False),
+                           (16, buf[1:1601].view(100, 16), False),
+                           (16, buf[:1600].view(100, 16), True)):
+        luts = torch.ones((3, m, 256), device=dev)
+        before = qdist.TOPK_LAUNCHES, qdist.TOPK_SMEM_LAUNCHES
+        qdist.pq_topk_cuda(luts, codes, k=5)
+        torch.cuda.synchronize()
+        assert (qdist.TOPK_LAUNCHES - before[0],
+                qdist.TOPK_SMEM_LAUNCHES - before[1]) == (
+            (0, 1) if smem else (1, 0)), (m, codes.data_ptr() % 16)
+    with pytest.raises(ValueError, match="shared-memory"):
+        qdist.pq_topk_smem_cuda(torch.ones((3, 8, 256), device=dev),
+                                buf[:800].view(100, 8), k=5)
