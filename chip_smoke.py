@@ -27,12 +27,16 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                traversal_async.cu runs with its visited bitmap in global
                memory (1M rows) and in shared memory (65,536); its shared-
                memory count against the Python mirror and its CTAs an SM
-               at the main path's shapes (>= 8); and pq_adc and both
-               pq_topk kernels (pq_topk_smem.cu and qdist.cu's; M=16, 256
-               queries, k = 1, 10 and 64) over 1,000,000 seeded uint8
-               code rows with float-valued and integer-valued tables in
-               [0, 8) (tie-heavy), with and without +inf padding rows,
-               bitwise equal.
+               at the main path's shapes (>= 8); and both pq_adc kernels
+               (pq_adc_smem.cu and qdist.cu's) and both pq_topk kernels
+               (pq_topk_smem.cu and qdist.cu's; M=16, 256 queries, k = 1,
+               10 and 64) over 1,000,000 seeded uint8 code rows with
+               float-valued and integer-valued tables in [0, 8)
+               (tie-heavy), with and without +inf padding rows, bitwise
+               equal; then pq_adc through its dispatching wrapper at
+               ragged Bq and Bx, a short tile and M = 16 / 32 / 64 (both
+               kernels), M = 8 and unaligned codes (qdist.cu), each on the
+               kernel the launch counters show it took.
   4. main    — the port's float32 main path through its public entry
                points: SearchService.build(partitioned, P=4, M=16,
                ef_construction=100, fused_hops=4) over 32,768
@@ -75,11 +79,31 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                copy of each backend bitwise equal on one batch. Then the 8-bit
                traversal and the PQ kernels are timed at these paths'
                shapes against their plain versions and bounds (the PQ
-               kernels by device time, both pq_topk kernels in turns, CUDA
-               events around a call printed beside; the bound the largest
-               of bytes, float adds and shared-memory lookups), and both
-               pq_topk kernels by device time at the kernel phase's
+               kernels by device time, both pq_topk kernels in turns and
+               both pq_adc kernels in turns, CUDA events around a call
+               printed beside; the bound the largest of bytes, float adds
+               and shared-memory lookups), and both pq_topk and both
+               pq_adc kernels by device time at the kernel phase's
                1,000,000 rows on its integer tables with padding rows.
+  6b. csd    — the out-of-core csd backend over the four partitioned
+               indexes of phases 4 and 6 (float32, uint8, int8, pq with
+               its float32 rerank rows), each written by
+               CSDBackend.from_partitioned to a block store of 4,096-byte
+               blocks on the machine's disk (no new graph build), then
+               served from it with a page cache of at most 1/8 of the
+               store and the prefetcher on: one untimed batch, then
+               CSD_BATCHES batches of 256 through `serve_loop`, rerank off
+               and on. Checks: ids, dists, hops and dist_calcs bitwise
+               equal to the partitioned service on the card at fused_hops
+               1 and 4 (rerank on at 4 too), block reads > 0, peak cache
+               bytes within the cache, fewer supersteps at fused_hops 4
+               than at 1, a CPU copy (saved, then loaded with
+               device="cpu") bitwise equal on one batch. Prints store and
+               cache bytes, QPS and p50 / p99, block reads and bytes read
+               a query, the cache hit rate, supersteps a batch, one
+               batch's host time by the port's TRACER spans (store-read,
+               hop_superstep, hop-kernel, rerank) and the device's busy
+               time (torch.profiler) beside the batch's p50.
 
   7. scan    — the exact-scan kernels through the public `kernels.ops` API,
                SIFT1M's size: 1,000,000 integer-valued 128-d float32 rows
@@ -171,6 +195,7 @@ import multiprocessing
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -187,6 +212,9 @@ INT8_OPS = 1979e12               # H100 SXM dense int8 tensor cores
 SMEM_LOOKUPS_PER_S = 32 * 132 * 1.98e9
 DEVICE = "cuda"
 N_MAIN, N_QUERIES, BATCH, PQ_M = 32768, 2048, 256, 16
+# the csd phase: block bytes, the page cache at most 1 / CSD_CACHE_SHARE
+# of its store, timed batches of each serving loop
+CSD_BLOCK, CSD_CACHE_SHARE, CSD_BATCHES = 4096, 8, 4
 # the kernel phase's second synthetic graph: 65,536 rows, a 2,048-word
 # visited bitmap a lane, the widest traversal_async.cu keeps in shared memory
 N_SHARED = 65536
@@ -502,11 +530,52 @@ def async_layout_check() -> None:
             f"memory")
 
 
+def pq_adc_ragged_check(g) -> None:
+    """Both pq_adc kernels bitwise equal to the plain version off the main
+    shapes, and the route each shape takes by the launch counters: ragged
+    Bq (not a multiple of 128 / M) and Bx (not a multiple of 32 or 4), a
+    short tile, M = 16 / 32 / 64 with pad rows to pq_adc_smem.cu; M = 8
+    and unaligned codes to qdist.cu."""
+    from repro_torch.kernels import qdist as qd
+
+    for bq, bx, m, offset in ((9, 2083, 16, 0), (3, 31, 16, 0),
+                              (17, 4100, 32, 0), (5, 70001, 64, 0),
+                              (9, 2083, 8, 0), (9, 2083, 16, 1)):
+        luts = torch.floor(torch.rand((bq, m, 256), generator=g,
+                                      device=DEVICE) * 8)
+        buf = torch.randint(0, 256, (bx * m + 16,), generator=g,
+                            device=DEVICE, dtype=torch.int32).to(torch.uint8)
+        codes = buf[offset:offset + bx * m].view(bx, m)
+        xpad = torch.zeros(bx, device=DEVICE)
+        xpad[bx - bx // 5:] = float("inf")
+        want = qd.pq_adc_ref(luts, codes, xpad)
+        smem = qd.pq_adc_route(luts, codes, xpad)
+        check(smem == (m in qd.SMEM_M and offset == 0),
+              f"pq_adc_route({bq} x {bx} x M={m}, offset {offset}) = {smem}")
+        before = qd.ADC_SMEM_LAUNCHES, qd.ADC_LAUNCHES
+        got = qd.pq_adc_cuda(luts, codes, xpad)
+        check(torch.equal(got, want), f"pq_adc != plain at {bq} x {bx} x "
+                                      f"M={m}, offset {offset}")
+        check((qd.ADC_SMEM_LAUNCHES - before[0], qd.ADC_LAUNCHES - before[1])
+              == ((1, 0) if smem else (0, 1)),
+              f"pq_adc at {bq} x {bx} x M={m} took the wrong kernel")
+        fns = ((qd.pq_adc_smem_cuda, qd.pq_adc_v1_cuda) if smem
+               else (qd.pq_adc_v1_cuda,))
+        for fn in fns:
+            check(torch.equal(fn(luts, codes, xpad), want),
+                  f"{fn.__name__} != plain at {bq} x {bx} x M={m}")
+        log(f"[kernel] pq_adc {bq} x {bx} x M={m}"
+            f"{', codes at a 1-byte offset' if offset else ''}: "
+            f"{'pq_adc_smem.cu and qdist.cu' if smem else 'qdist.cu'} "
+            f"bitwise equal to the plain version; the wrapper took "
+            f"{'pq_adc_smem.cu' if smem else 'qdist.cu'}")
+
+
 def pq_kernel_check(n_rows: int, g) -> dict:
-    """pq_adc and both pq_topk kernels against their plain versions at
-    n_rows x M=16, 256 queries, bitwise: float tables and integer tables
-    in [0, 8) (ties), with and without 16 +inf padding rows, k = 1, 10,
-    64."""
+    """Both pq_adc kernels and both pq_topk kernels against their plain
+    versions at n_rows x M=16, 256 queries, bitwise: float tables and
+    integer tables in [0, 8) (ties), with and without 16 +inf padding
+    rows, k = 1, 10, 64; then pq_adc off the main shapes."""
     from repro_torch.kernels import qdist as qd
 
     B = 256
@@ -514,20 +583,31 @@ def pq_kernel_check(n_rows: int, g) -> dict:
     ints, codes, xpad = pq_wide_inputs(n_rows, g)
     check(qd.pq_topk_route(ints, codes, xpad, 10),
           "the 1M-row PQ shape does not take pq_topk_smem.cu")
-    worst = {"pq_adc": 0.0, "pq_topk": 0.0, "pq_topk_v1": 0.0}
+    check(qd.pq_adc_route(ints, codes, xpad),
+          "the 1M-row PQ shape does not take pq_adc_smem.cu")
+    worst = {"pq_adc": 0.0, "pq_adc_v1": 0.0, "pq_topk": 0.0,
+             "pq_topk_v1": 0.0}
     for xp in (None, xpad):
-        k_ms = events_ms(lambda: qd.pq_adc_cuda(luts, codes, xp))
-        got = qd.pq_adc_cuda(luts, codes, xp)
-        r_ms = events_ms(lambda: qd.pq_adc_ref(luts, codes, xp))
-        want = qd.pq_adc_ref(luts, codes, xp)
-        check(torch.equal(got, want), f"pq_adc != plain (xpad={xp is not None})")
-        fin = torch.isfinite(want)
-        worst["pq_adc"] = max(worst["pq_adc"],
-                              float((got[fin] - want[fin]).abs().max()))
-        log(f"[kernel] pq_adc {B} x {n_rows} x M={PQ_M} "
-            f"(xpad={xp is not None}): bitwise equal; kernel {k_ms:.3f} ms, "
-            f"plain {r_ms:.3f} ms")
-        del got, want, fin
+        for name, tab in (("float", luts), ("integer [0, 8)", ints)):
+            want = qd.pq_adc_ref(tab, codes, xp)
+            fin = torch.isfinite(want)
+            for key, fn in (("pq_adc", qd.pq_adc_smem_cuda),
+                            ("pq_adc_v1", qd.pq_adc_v1_cuda)):
+                got = fn(tab, codes, xp)
+                check(torch.equal(got, want),
+                      f"{key} != plain ({name} tables, xpad="
+                      f"{xp is not None})")
+                worst[key] = max(worst[key],
+                                 float((got[fin] - want[fin]).abs().max()))
+                del got
+            if xp is not None:
+                check(bool(torch.isinf(want[:, n_rows - 16:]).all()),
+                      "pq_adc: a pad row is finite")
+            log(f"[kernel] pq_adc {B} x {n_rows} x M={PQ_M}, {name} tables "
+                f"(xpad={xp is not None}): pq_adc_smem.cu and qdist.cu "
+                f"bitwise equal to the plain version")
+            del want, fin
+        torch.cuda.empty_cache()
         for name, tab in (("float", luts), ("integer [0, 8)", ints)):
             wv64, wi64 = qd.pq_topk_ref(tab, codes, xp, k=64)
             for k in (1, 10, 64):
@@ -548,6 +628,7 @@ def pq_kernel_check(n_rows: int, g) -> dict:
                 f"1, 10, 64")
             del wv64, wi64
     torch.cuda.empty_cache()
+    pq_adc_ragged_check(g)
     return worst
 
 
@@ -564,10 +645,10 @@ def pq_wide_inputs(n_rows: int, g):
 
 
 def pq_wide_timing(n_rows: int, seed: int) -> dict:
-    """Both pq_topk kernels at 256 x n_rows x M=16, k=10, on
-    pq_wide_inputs (the kernel phase's tie-heavy check), device time in
-    turns. Runs after the traversal timings, which take the run's first
-    profiler traces."""
+    """Both pq_topk kernels at 256 x n_rows x M=16, k=10, and both pq_adc
+    kernels, on pq_wide_inputs (the kernel phase's tie-heavy check),
+    device time in turns. Runs after the traversal timings, which take the
+    run's first profiler traces."""
     from repro_torch.kernels import qdist as qd
 
     g = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -583,6 +664,18 @@ def pq_wide_timing(n_rows: int, seed: int) -> dict:
         f"16 pad rows, device time (torch.profiler, in turns): "
         f"pq_topk_smem.cu {t['smem']:.4f} ms, qdist.cu {t['v1']:.4f} ms "
         f"({t['v1'] / t['smem']:.2f}x); bound {t['bound_ms']:.4f} ms ({what})")
+    a = in_turns({"adc_smem": lambda: qd.pq_adc_smem_cuda(ints, codes, xpad),
+                  "adc_v1": lambda: qd.pq_adc_v1_cuda(ints, codes, xpad)},
+                 reps=5)
+    t.update(a)
+    t["adc_bound_ms"], _, what = pq_bound(256 * PQ_M * 1024 + codes.numel()
+                                          + n_rows * 4 + 256 * n_rows * 4,
+                                          lookups, lookups)
+    log(f"[timing] pq_adc 256 x {n_rows} x M={PQ_M}, integer tables, 16 pad "
+        f"rows, device time (torch.profiler, in turns): pq_adc_smem.cu "
+        f"{t['adc_smem']:.4f} ms, qdist.cu {t['adc_v1']:.4f} ms "
+        f"({t['adc_v1'] / t['adc_smem']:.2f}x); bound "
+        f"{t['adc_bound_ms']:.4f} ms ({what})")
     del ints, codes, xpad
     torch.cuda.empty_cache()
     return t
@@ -610,8 +703,9 @@ def recall_at(ids: np.ndarray, gt: np.ndarray) -> float:
     return hit / gt.size
 
 
-def answer(svc, q, h=None, rerank=False):
-    """One search with stats, on the host; `h` overrides fused_hops."""
+def answer(svc, q, h=None, rerank=False, stats=False):
+    """One search with stats, on the host: ids, dists, hops, dist_calcs
+    (and the QueryStats if `stats`); `h` overrides fused_hops."""
     import dataclasses
 
     from repro_torch.api import SearchRequest
@@ -623,8 +717,9 @@ def answer(svc, q, h=None, rerank=False):
     try:
         r = svc.search(SearchRequest(q, k=10, ef=40, rerank=rerank,
                                      with_stats=True))
-        return [None if t is None else t.cpu()
-                for t in (r.ids, r.dists, r.stats.hops, r.stats.dist_calcs)]
+        got = [None if t is None else t.cpu()
+               for t in (r.ids, r.dists, r.stats.hops, r.stats.dist_calcs)]
+        return (got, r.stats) if stats else got
     finally:
         be.spec = old
 
@@ -689,6 +784,31 @@ def check_cpu_copy(svc, cpu, q0, what: str, reranks=(False, True)) -> None:
         f"{' and '.join('on' if r else 'off' for r in reranks)}")
 
 
+# pq_adc's launches summed over the paths' serving runs, by kernel row name
+ADC_ON_PATHS = {"pq_adc": 0, "pq_adc_v1": 0}
+
+
+def reset_adc_counts() -> None:
+    from repro_torch.kernels import qdist as qd
+
+    qd.ADC_SMEM_LAUNCHES = qd.ADC_LAUNCHES = 0
+
+
+def take_adc_counts(what: str) -> None:
+    """pq_adc's launches in a path's run (counters set to 0 just before
+    it), added to ADC_ON_PATHS: no path of either package calls pq_adc (the
+    exact PQ backend takes the fused pq_topk), so both must be 0."""
+    from repro_torch.kernels import qdist as qd
+
+    got = {"pq_adc": qd.ADC_SMEM_LAUNCHES, "pq_adc_v1": qd.ADC_LAUNCHES}
+    for name, n in got.items():
+        ADC_ON_PATHS[name] += n
+    log(f"[{what}] pq_adc launches: pq_adc_smem.cu {got['pq_adc']}, "
+        f"qdist.cu {got['pq_adc_v1']}")
+    check(got == {"pq_adc": 0, "pq_adc_v1": 0},
+          f"the {what} path launched pq_adc {got}")
+
+
 def check_traversal_launches(what: str, n_batches: int) -> int:
     """The traversal launches of a path's serving run (counters set to 0
     just before it): traversal_async.cu launched, traversal.cu never."""
@@ -715,6 +835,7 @@ def main_phase(svc, data, queries) -> dict:
         .numpy() for i in range(0, len(queries), BATCH)])
     n_batches = len(queries) // BATCH
     tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
+    reset_adc_counts()
     ids_by = serve_paths(svc, queries, gt, "main", {False: 0.95, True: 0.95})
     launches = check_traversal_launches("main", n_batches)
     check_fused_hops(svc, queries, "main")
@@ -722,6 +843,7 @@ def main_phase(svc, data, queries) -> dict:
         svc.save(tmp)
         cpu = SearchService.load(tmp, device="cpu")
     check_cpu_copy(svc, cpu, queries[:BATCH], "main")
+    take_adc_counts("main")
     return {"launches": launches, "gt": gt, "ids": ids_by}
 
 
@@ -883,6 +1005,7 @@ def scalar_phase(path: str, dtype: str, queries, main_out) -> dict:
         and quant.zero_point == 0
     gate = {False: 0.95, True: 0.95} if dtype == "uint8" else {True: 0.90}
     tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
+    reset_adc_counts()
     ids_by = serve_paths(svc, queries, main_out["gt"], dtype, gate)
     launches = check_traversal_launches(dtype, len(queries) // BATCH)
     if dtype == "uint8":
@@ -901,6 +1024,7 @@ def scalar_phase(path: str, dtype: str, queries, main_out) -> dict:
     cpu = SearchService.load(path, device="cpu")
     check_cpu_copy(svc, cpu, queries[:BATCH], dtype,
                    (False, True) if exact_bytes else (False,))
+    take_adc_counts(dtype)
     timing = timing_phase(svc, quant.encode_f32(queries[:BATCH]), dtype)
     return {"launches": launches, "timing": timing}
 
@@ -942,10 +1066,10 @@ def pq_split(svc, q) -> dict:
 
 
 def pq_timing(exact, q, reps: int = 5) -> dict:
-    """Both pq_topk kernels and pq_adc against their plain versions at the
-    exact PQ path's shapes (one batch's LUTs over the whole code table):
-    device time by torch.profiler (both pq_topk kernels in turns), CUDA
-    events around a call (the wrapper's host work included) beside."""
+    """Both pq_topk kernels and both pq_adc kernels against their plain
+    versions at the exact PQ path's shapes (one batch's LUTs over the
+    whole code table): device time by torch.profiler (each pair in turns),
+    CUDA events around a call (the wrapper's host work included) beside."""
     from repro_torch.kernels import qdist as qd
     from repro_torch.optim import build_pq_lut
 
@@ -959,21 +1083,26 @@ def pq_timing(exact, q, reps: int = 5) -> dict:
     (bq, m, _), bx, k = luts.shape, codes.shape[0], 10
     check(qd.pq_topk_route(luts, codes, None, k),
           "the exact PQ path's shapes do not take pq_topk_smem.cu")
+    check(qd.pq_adc_route(luts, codes, None),
+          "the exact PQ path's shapes do not take pq_adc_smem.cu")
     kern = {"pq_topk": lambda: qd.pq_topk_smem_cuda(luts, codes, k=k),
             "pq_topk_v1": lambda: qd.pq_topk_v1_cuda(luts, codes, k=k),
-            "pq_adc": lambda: qd.pq_adc_cuda(luts, codes)}
+            "pq_adc": lambda: qd.pq_adc_smem_cuda(luts, codes),
+            "pq_adc_v1": lambda: qd.pq_adc_v1_cuda(luts, codes)}
     plain = {"pq_topk": lambda: qd.pq_topk_ref(luts, codes, k=k),
              "pq_adc": lambda: qd.pq_adc_ref(luts, codes)}
     plain["pq_topk_v1"] = plain["pq_topk"]
+    plain["pq_adc_v1"] = plain["pq_adc"]
     dev_ms = in_turns({n: kern[n] for n in ("pq_topk", "pq_topk_v1")})
-    dev_ms["pq_adc"] = device_ms(kern["pq_adc"])
+    dev_ms.update(in_turns({n: kern[n] for n in ("pq_adc", "pq_adc_v1")}))
     out = {}
-    for name in ("pq_topk", "pq_topk_v1", "pq_adc"):
+    for name in ("pq_topk", "pq_topk_v1", "pq_adc", "pq_adc_v1"):
+        adc = name.startswith("pq_adc")
         got, want = kern[name](), plain[name]()
-        same = (torch.equal(got, want) if name == "pq_adc" else
+        same = (torch.equal(got, want) if adc else
                 all(torch.equal(a, b) for a, b in zip(got, want)))
         check(same, f"{name} != plain at the exact PQ path's shapes")
-        out_bytes = bq * bx * 4 if name == "pq_adc" else bq * k * 8
+        out_bytes = bq * bx * 4 if adc else bq * k * 8
         bytes_ = luts.numel() * 4 + codes.numel() + out_bytes
         adds = lookups = bq * bx * m
         bound_ms, bound_by, what = pq_bound(bytes_, adds, lookups)
@@ -989,10 +1118,12 @@ def pq_timing(exact, q, reps: int = 5) -> dict:
             f"ms, {adds / 1e6:.1f}M fp32 adds {adds / FP32_FLOPS * 1e3:.5f} "
             f"ms, {bytes_ / 1e6:.3f} MB {bytes_ / HBM_BYTES_PER_S * 1e3:.5f} "
             f"ms)")
-    log(f"[timing] pq_topk at the exact PQ path's shapes: pq_topk_smem.cu "
-        f"{out['pq_topk']['ms']:.4f} ms against qdist.cu's "
-        f"{out['pq_topk_v1']['ms']:.4f} ms device time "
-        f"({out['pq_topk_v1']['ms'] / out['pq_topk']['ms']:.2f}x)")
+    for name, new in (("pq_topk", "pq_topk_smem.cu"),
+                      ("pq_adc", "pq_adc_smem.cu")):
+        log(f"[timing] {name} at the exact PQ path's shapes: {new} "
+            f"{out[name]['ms']:.4f} ms against qdist.cu's "
+            f"{out[name + '_v1']['ms']:.4f} ms device time, in turns "
+            f"({out[name + '_v1']['ms'] / out[name]['ms']:.2f}x)")
     log(f"[timing] exact PQ batch: LUT build {lut_host_ms:.3f} ms (host "
         f"clock), pq_topk {out['pq_topk']['ms']:.4f} ms (device)")
     out["wide"] = pq_wide_timing(1_000_000, seed=2)
@@ -1061,6 +1192,7 @@ def pq_phase(path: str, data, queries, gt) -> dict:
     # one untimed batch first, as serve_paths does
     exact.search(SearchRequest(queries[:BATCH], k=10, ef=40)).ids.cpu()
     qd.TOPK_LAUNCHES = qd.TOPK_SMEM_LAUNCHES = 0
+    reset_adc_counts()
     ids, st = serve_loop(exact, queries, BATCH, 10, 40,
                          log=lambda m: log(f"[pq-exact] {m}"))
     launches, v1 = qd.TOPK_SMEM_LAUNCHES, qd.TOPK_LAUNCHES
@@ -1093,10 +1225,170 @@ def pq_phase(path: str, data, queries, gt) -> dict:
         exact.save(tmp)
         exact_cpu = SearchService.load(tmp, device="cpu")
     check_cpu_copy(exact, exact_cpu, q0, "pq-exact")
+    # the pq paths end here: pq_timing launches pq_adc only to compare it
+    take_adc_counts("pq")
     split = pq_split(spq, q0)
     timing = pq_timing(exact, q0)
     return {"launches": launches, "timing": timing, "split": split,
             "p50_ms": p50}
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the out-of-core csd backend
+# ---------------------------------------------------------------------------
+
+
+def csd_split(svc, q) -> dict:
+    """Host ms of one rerank-on csd batch by the port's own TRACER spans
+    (each summed over its occurrences): the whole search, the per-partition
+    traversals, the block store's reads (`store-read`: the page cache's
+    block gets), the supersteps on the device (their submission:
+    `hop-kernel`) and stage-2 rerank. Beside them, "read_rows": the whole
+    StoreReader.read_rows calls of the search's own thread (the block
+    gets, and the addressing and row cuts around them), by a timer put
+    around the reader's method for this batch only."""
+    from repro_torch.api import SearchRequest
+    from repro_torch.obs import TRACER
+
+    reader = svc.backend.reader
+    read_rows, me, spent = reader.read_rows, threading.get_ident(), []
+
+    def timed(*args, **kwargs):
+        if threading.get_ident() != me:     # the prefetcher's thread
+            return read_rows(*args, **kwargs)
+        t0 = time.perf_counter()
+        try:
+            return read_rows(*args, **kwargs)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    TRACER.configure(enabled=True, sample_rate=1.0)
+    TRACER.clear()
+    reader.read_rows = timed
+    try:
+        svc.search(SearchRequest(q, k=10, ef=40, rerank=True)).ids.cpu()
+        spans = TRACER.spans()
+    finally:
+        del reader.read_rows
+        TRACER.configure(enabled=False)
+        TRACER.clear()
+    out = {n: sum(ev["t1"] - ev["t0"] for ev in spans if ev["name"] == n)
+           * 1e3 for n in ("search", "traversal", "store-read",
+                           "hop_superstep", "hop-kernel", "rerank")}
+    out["read_rows"] = sum(spent) * 1e3
+    return out
+
+
+def csd_phase(tmp: str, parts: dict, queries) -> dict:
+    """Each partitioned index of phases 4 and 6 (dtype -> service on the
+    card) re-served out of core: CSDBackend.from_partitioned writes its
+    block store (CSD_BLOCK-byte blocks; pq with its float32
+    `rerank_vectors`) under `tmp`, and the service reopens it with a page
+    cache of at most 1 / CSD_CACHE_SHARE of the store and the prefetcher
+    on. One untimed batch, then CSD_BATCHES timed ones through serve_loop,
+    rerank off and on. Checks: ids, dists, hops and dist_calcs bitwise
+    equal to the partitioned service on the card at fused_hops 1 and 4
+    (and rerank on at 4), block reads > 0, peak cache bytes within the
+    cache, fewer supersteps at fused_hops 4 than at 1, and a CPU copy
+    bitwise equal to the card on one batch."""
+    import dataclasses
+    import os
+
+    from repro_torch.api import SearchRequest, SearchService
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.store import CSDBackend
+
+    q0 = queries[:BATCH]
+    out = {}
+    for dt, part in parts.items():
+        what = f"csd-{dt}"
+        t0 = time.perf_counter()
+        path = str(Path(tmp) / what)
+        spec = dataclasses.replace(part.spec, backend="csd",
+                                   keep_vectors=False, storage_path=path,
+                                   block_size=CSD_BLOCK, prefetch=True)
+        CSDBackend.from_partitioned(
+            part.backend.pdb, spec, device=DEVICE,
+            raw=part.backend.raw if dt == "pq" else None).reader.close()
+        store = os.path.getsize(Path(path) / "blocks.bin")
+        cache = max(CSD_BLOCK,
+                    store // CSD_CACHE_SHARE // CSD_BLOCK * CSD_BLOCK)
+        spec = dataclasses.replace(spec, cache_bytes=cache)
+        svc = SearchService(spec, CSDBackend.from_state(spec, {}, DEVICE))
+        log(f"[{what}] block store {store} bytes ({store // CSD_BLOCK} "
+            f"blocks of {CSD_BLOCK}), written in "
+            f"{time.perf_counter() - t0:.1f}s; page cache {cache} bytes "
+            f"(1/{store / cache:.2f} of the store), prefetch on")
+        lat = {}
+        reset_adc_counts()
+        for rerank in (False, True):
+            svc.search(SearchRequest(q0, k=10, ef=40, rerank=rerank)).ids.cpu()
+            _, st = serve_loop(svc, queries[:BATCH * CSD_BATCHES], BATCH, 10,
+                               40, rerank=rerank,
+                               log=lambda m: log(f"[{what}] rerank={rerank} "
+                                                 f"{m}"))
+            lat[rerank] = st
+            log(f"[{what}] rerank={rerank}: QPS {st['qps']:.1f}, p50 "
+                f"{st['p50_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms per "
+                f"{BATCH}-query batch ({st['batches']} batches)")
+        stats = {}
+        for h, rerank in ((1, False), (4, False), (4, True)):
+            got, stats[h, rerank] = answer(svc, q0, h, rerank, stats=True)
+            for name, x, y in zip(("ids", "dists", "hops", "dist_calcs"),
+                                  got, answer(part, q0, h, rerank)):
+                check(torch.equal(x, y), f"{what} != partitioned: {name} "
+                                         f"(fused_hops={h}, rerank={rerank})")
+        s1, s4 = stats[1, False], stats[4, False]
+        pc = svc.backend.reader.cache
+        check(s1.block_reads > 0 and s4.block_reads > 0,
+              f"{what}: no block reads")
+        check(pc.peak_bytes <= pc.capacity_bytes == cache,
+              f"{what}: peak cache bytes {pc.peak_bytes} > {cache}")
+        check(s4.supersteps < s1.supersteps,
+              f"{what}: {s4.supersteps} supersteps at fused_hops=4, "
+              f"{s1.supersteps} at 1")
+        log(f"[{what}] bitwise equal to the partitioned service on the card "
+            f"(ids, dists, hops, dist_calcs) at fused_hops 1 and 4, rerank "
+            f"off, and at 4 with rerank; peak cache {pc.peak_bytes} of "
+            f"{cache} bytes")
+        for h, s in ((1, s1), (4, s4)):
+            log(f"[{what}] fused_hops={h}, one {BATCH}-query batch: "
+                f"{s.block_reads / BATCH:.1f} block reads and "
+                f"{s.bytes_read / BATCH:.0f} bytes a query, cache hit rate "
+                f"{s.cache_hit_rate:.4f}, {s.supersteps} supersteps a batch "
+                f"(summed over {part.spec.num_partitions} partitions)")
+        split = csd_split(svc, q0)
+        log(f"[{what}] one rerank-on batch by TRACER span, host ms: search "
+            f"{split['search']:.1f}, traversal {split['traversal']:.1f}, "
+            f"store-read {split['store-read']:.1f}, hop_superstep "
+            f"{split['hop_superstep']:.1f} (hop-kernel submission "
+            f"{split['hop-kernel']:.1f}), rerank {split['rerank']:.1f}; "
+            f"whole read_rows calls {split['read_rows']:.1f} (store-read "
+            f"and the addressing and row cuts around it); the rest of "
+            f"search outside read_rows and hop_superstep "
+            f"{split['search'] - split['read_rows'] - split['hop_superstep']:.1f}")
+        busy = device_ms(lambda: svc.search(SearchRequest(
+            q0, k=10, ef=40)).ids.cpu(), reps=1)
+        log(f"[{what}] device busy {busy:.3f} ms of a rerank-off batch "
+            f"(torch.profiler, kernels and copies): idle share "
+            f"{1 - busy / lat[False]['p50_ms']:.3f} of its p50")
+        with tempfile.TemporaryDirectory() as idx:
+            svc.save(idx)
+            cpu = SearchService.load(idx, device="cpu")
+        # int8's decoded rows are not integers (scale 255/127): the
+        # rerank's float sums may differ between the card and the CPU
+        check_cpu_copy(svc, cpu, q0, what,
+                       (False,) if dt == "int8" else (False, True))
+        take_adc_counts(what)
+        cpu.backend.reader.close()
+        svc.backend.reader.close()
+        out[dt] = {"store_bytes": store, "cache_bytes": cache,
+                   "serve": lat, "split": split, "busy_ms": busy,
+                   "stats": {h: {f: getattr(s, f) for f in (
+                       "block_reads", "bytes_read", "cache_hit_rate",
+                       "supersteps")} for h, s in ((1, s1), (4, s4))}}
+        log(f"[{what}] phase {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2146,9 +2438,10 @@ def kernel_row(name, source, replaces, launches, err, timing, bound_by):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernel,main,quant,scan,lm",
-                    help="comma list of kernel,main,quant,scan,lm (card "
-                         "and build always run; quant needs main)")
+    ap.add_argument("--phases", default="kernel,main,quant,csd,scan,lm",
+                    help="comma list of kernel,main,quant,csd,scan,lm (card "
+                         "and build always run; csd needs quant, quant "
+                         "needs main)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2162,6 +2455,8 @@ def main(argv=None) -> int:
         return 2
     t_all = time.perf_counter()
     phases = set(args.phases.split(","))
+    if "csd" in phases:
+        phases.add("quant")
     if "quant" in phases:
         phases.add("main")
 
@@ -2228,6 +2523,13 @@ def main(argv=None) -> int:
                          for dt in ("uint8", "int8")}
                 quant["pq"] = pq_phase(paths["pq"], data, queries,
                                        main_out["gt"])
+            # 6b. csd, over the same four indexes
+            if "csd" in phases:
+                parts = {"float32": svc}
+                for dt in ("uint8", "int8", "pq"):
+                    parts[dt] = SearchService.load(paths[dt], device=DEVICE)
+                csd_phase(tmp, parts, queries)
+                del parts
     # 7. scan
     if "scan" in phases:
         torch.cuda.empty_cache()
@@ -2261,12 +2563,15 @@ def main(argv=None) -> int:
             ("pq_topk", csrc + "pq_topk_smem.cu",
              "src/repro/kernels/qdist.py:310"),
             ("pq_topk_v1", qsrc, "src/repro/kernels/qdist.py:310"),
-            ("pq_adc", qsrc, "src/repro/kernels/qdist.py:240")):
+            ("pq_adc", csrc + "pq_adc_smem.cu",
+             "src/repro/kernels/qdist.py:240"),
+            ("pq_adc_v1", qsrc, "src/repro/kernels/qdist.py:240")):
         t = pq and pq["timing"][name]
         # the exact PQ path launches only pq_topk_smem.cu (pq_phase checks
-        # 0 launches of qdist.cu's pq_topk); pq_adc is on no path of the
-        # system (the exact backend fuses the top-k)
-        launches = pq["launches"] if pq and name == "pq_topk" else 0
+        # 0 launches of qdist.cu's pq_topk); pq_adc's are the counts of
+        # the main, quant and csd paths' runs (take_adc_counts checks 0)
+        launches = (pq["launches"] if pq and name == "pq_topk"
+                    else ADC_ON_PATHS.get(name, 0))
         rows.append(kernel_row(name, source, replaces, launches,
                                kern.get(name), t,
                                t["bound_by"] if t else "operations"))

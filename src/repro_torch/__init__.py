@@ -1,10 +1,11 @@
 """repro_torch — the PyTorch / CUDA port of the partitioned HNSW engine.
 
 The JAX package `repro` is the reference; this package re-implements its
-float32 `exact` / `hnsw` / `partitioned` search path in PyTorch, with the
-layer-0 beam traversal as a hand-written CUDA kernel for Hopper
-(`kernels/csrc/traversal.cu`). It imports `torch` and numpy only — never
-`jax`, and nothing from `repro`.
+`exact` / `hnsw` / `partitioned` / `csd` search paths, its telemetry core
+and its DeepSeek-V2-Lite serving path in PyTorch, with every Pallas
+kernel of the reference rewritten by hand for Hopper (`kernels/csrc/`).
+It imports `torch` and numpy only — never `jax`, and nothing from
+`repro`.
 
 Entry points run on the card unless the caller asks for the CPU:
 `resolve_device(None)` is `cuda` and raises when no CUDA device is

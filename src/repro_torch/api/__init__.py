@@ -1,8 +1,9 @@
 """repro_torch.api — the search-service surface of the port.
 
 The same request/response API as the reference package over the ported
-engines: exact brute force, monolithic HNSW and the paper's partitioned
-two-stage engine, float32.
+engines: exact brute force, monolithic HNSW, the paper's partitioned
+two-stage engine and its out-of-core `csd` form over a block store, on
+float32, scalar-quantized and product-quantized rows.
 """
 
 from repro_torch.api.backends import (

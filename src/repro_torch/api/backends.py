@@ -9,12 +9,14 @@ loads an index the other saved:
   hnsw        : one monolithic graph (partitioned with P=1)
   partitioned : the paper's two-stage engine — P sub-graphs, stage-2 merge,
                 optional exact rerank
+  csd         : out-of-core over the block store (repro_torch.store) — the
+                paper's computational-storage platform
 
 Every backend serves float32, scalar-quantized (uint8 / int8) and
 product-quantized (`pq`) rows, as `IndexSpec.dtype` says. `distributed`
-and `csd` exist in the reference but are not ported yet: asking for them
-raises NotImplementedError. Every backend holds its tensors on one
-`device` (`cuda` unless the caller asked for the CPU).
+exists in the reference but is not ported yet: asking for it raises
+NotImplementedError. Every backend holds its tensors on one `device`
+(`cuda` unless the caller asked for the CPU).
 """
 
 from __future__ import annotations
@@ -38,11 +40,12 @@ from repro_torch.kernels.ops import pq_topk
 from repro_torch.optim.compression import build_pq_lut
 
 __all__ = ["register_backend", "get_backend", "available_backends",
-           "ExactBackend", "HNSWBackend", "PartitionedBackend"]
+           "CSDBackend", "ExactBackend", "HNSWBackend",
+           "PartitionedBackend"]
 
 _BACKENDS: dict[str, type] = {}
 # in the reference, not yet in the port
-_UNPORTED = ("distributed", "csd")
+_UNPORTED = ("distributed",)
 
 
 def register_backend(name: str):
@@ -264,3 +267,13 @@ class HNSWBackend(PartitionedBackend):
     """Single monolithic graph — partitioned with exactly one partition."""
 
     forced_partitions = 1
+
+
+# ---------------------------------------------------------------------------
+# csd — out-of-core over the block store (defined in repro_torch.store.csd,
+# which imports this package's types only lazily)
+# ---------------------------------------------------------------------------
+
+from repro_torch.store.csd import CSDBackend  # noqa: E402
+
+register_backend("csd")(CSDBackend)

@@ -37,6 +37,8 @@ from repro_torch.api.types import (
     SearchResponse,
 )
 from repro_torch.checkpoint import latest_step, save_checkpoint, step_dir
+from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.trace import TRACER
 from repro_torch.optim.compression import PQQuantizer, VectorQuantizer
 
 __all__ = ["SearchService", "MANIFEST_NAME", "read_step_leaves"]
@@ -112,21 +114,29 @@ class SearchService:
         """One batched request; accepts a raw query array as shorthand.
         Results are tensors on the service's device. uint8/int8 queries
         are encoded here, once, so every backend sees the same codes; pq
-        queries stay float32 (asymmetric distance)."""
+        queries stay float32 (asymmetric distance). Emits the reference's
+        `search` span and its `api_searches_total` / `api_queries_total`
+        counters."""
         if not isinstance(request, SearchRequest):
             request = SearchRequest(queries=request)
-        q = request.queries
-        scalar = self.quantizer is not None and self.spec.dtype != "pq"
-        if isinstance(q, torch.Tensor) and (self.metric.normalize_queries
-                                            or scalar):
-            q = q.cpu().numpy()
-        if self.metric.normalize_queries:
-            q = self.metric.prepare_queries(np.asarray(q))
-        if scalar:
-            q = self.quantizer.encode_f32(np.asarray(q))
-        ids, dists, stats = self.backend.search(
-            q, k=request.k, ef=request.ef, rerank=request.rerank,
-            with_stats=request.with_stats)
+        with TRACER.span("search", backend=self.spec.backend, k=request.k,
+                         ef=request.ef):
+            q = request.queries
+            scalar = self.quantizer is not None and self.spec.dtype != "pq"
+            if isinstance(q, torch.Tensor) and (self.metric.normalize_queries
+                                                or scalar):
+                q = q.cpu().numpy()
+            if self.metric.normalize_queries:
+                q = self.metric.prepare_queries(np.asarray(q))
+            if scalar:
+                q = self.quantizer.encode_f32(np.asarray(q))
+            ids, dists, stats = self.backend.search(
+                q, k=request.k, ef=request.ef, rerank=request.rerank,
+                with_stats=request.with_stats)
+        REGISTRY.counter("api_searches_total",
+                         backend=self.spec.backend).inc()
+        REGISTRY.counter("api_queries_total",
+                         backend=self.spec.backend).inc(len(request.queries))
         return SearchResponse(ids=ids, dists=dists, stats=stats)
 
     # -- persistence --------------------------------------------------------

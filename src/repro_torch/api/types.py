@@ -35,8 +35,8 @@ class IndexSpec:
     """Everything needed to build (or re-open) an index.
 
     metric  : "l2" | "ip" | "cosine" (see api.metrics)
-    backend : "exact" | "hnsw" | "partitioned" ported; "distributed" and
-              "csd" raise NotImplementedError in this slice
+    backend : "exact" | "hnsw" | "partitioned" | "csd" ported;
+              "distributed" raises NotImplementedError
     num_partitions : stage-1 sub-graph count (paper §4.1)
     dtype   : "float32" | "uint8" | "int8" | "pq" (metric "l2" only for
               the quantized ones)
@@ -46,7 +46,9 @@ class IndexSpec:
     hnsw    : graph construction knobs (ignored by the exact backend)
     keep_vectors : retain the raw vectors beside the graph — needed for
               `SearchRequest.rerank`, and saved with the index
-    storage_path / block_size / cache_bytes / prefetch : `csd` knobs
+    storage_path / block_size / cache_bytes / prefetch : `csd` knobs (the
+              block store's directory, its block bytes, the page cache's
+              bound and the next-hop prefetcher)
     fused_hops : layer-0 hops per traversal kernel launch; bit-identical
               results at every value, and it rides the manifest
     """
@@ -112,7 +114,9 @@ class SearchRequest:
     ef      : beam width (graph backends; the exact backend ignores it)
     rerank  : recompute exact distances over the stage-1 candidate pool
     with_stats : return per-query hop / distance-evaluation counts
-    trace   : kept for parity with the reference; ignored by the port
+    trace   : kept for parity with the reference (a parent span handed
+              across threads by its serving layer); ignored by the port,
+              whose `search` span nests under the calling thread's
     """
 
     queries: Any
@@ -126,7 +130,10 @@ class SearchRequest:
 @dataclasses.dataclass(frozen=True)
 class QueryStats:
     """Per-query counters; `None` where a backend does not track one. The
-    storage counters belong to the csd backend, not yet ported."""
+    storage counters are the csd backend's, over one request: block
+    reads and bytes from the block store, the page cache's demand hits,
+    misses and hit rate, and the host-synced traversal rounds
+    (`supersteps`)."""
 
     hops: Any = None            # [B] candidate pops at layer 0
     dist_calcs: Any = None      # [B] distance evaluations == "vector reads"

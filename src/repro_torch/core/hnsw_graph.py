@@ -467,6 +467,14 @@ def restructure(
 # ---------------------------------------------------------------------------
 
 
+# The paper's Fig. 5 tables, in on-flash order: raw-data table, layer-0
+# table, upper-list table, index table (up_ptr/levels/gids/sqnorms are the
+# per-point index records; sqnorms ride along so one row read yields the
+# ||x||^2 term of the distance).
+TABLE_ORDER = ("vectors", "sqnorms", "l0_nbrs", "up_nbrs", "up_ptr",
+               "levels", "gids")
+
+
 def db_to_tables(db: DeviceDB) -> tuple[dict[str, np.ndarray], dict]:
     """Flatten a (possibly partition-stacked) DeviceDB into 2-D row-major
     tables addressable as fixed-stride rows — the unit the block store

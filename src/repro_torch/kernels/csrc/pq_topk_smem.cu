@@ -23,23 +23,16 @@
 // of compulsory traffic (0.0014 ms) and 134 M float adds (0.002 ms); at
 // 256 x 1,000,000 x 16, 4.1 G lookups, 0.490 ms.
 //
-// The design. Pass 1: CTA (s, g) takes kQ = 128 / M queries (128 KB of
-// tables in shared memory, one CTA an SM) and split s of the rows, in
-// 32-row tiles; 16 warps take the tiles in turn.
-// - Lanes take (query, row) pairs: lane l holds query l % kQ of a step's
-//   32 / kQ rows. The tables are interleaved, entry (q, m, c) at word
-//   (m * 256 + c) * kQ + q, so the kQ lanes of a row, which read one code,
-//   fall on kQ distinct banks, and two rows collide only where their codes
-//   agree modulo 32 / kQ. Expected shared-memory wavefronts a lookup
-//   instruction (a simulation over random codes): 2.10 at M = 16 (kQ = 8),
-//   2.54 at M = 32, 2.92 at M = 64, against 3.15 for 32 lanes on 32 rows
-//   of one query (qdist.cu's layout).
-// - Each warp streams its tiles' code rows (and xpad) into its own ring of
-//   stages with TMA bulk copies, one mbarrier a stage, issued by its lane 0
-//   kStages tiles ahead. No stage is shared between warps: TMA copies land
-//   out of order, and a warp must never wait on a phase another consumes.
-//   The last xpad rows past Bx rounded down to 4 (a bulk copy moves
-//   multiples of 16 bytes) are read from global memory.
+// The design. Pass 1: CTA (s, g) takes kQ = 128 / M queries and split s
+// of the rows, in 32-row tiles; 16 warps take the tiles in turn. The
+// tables, the warps' rings of code tiles and the per-row lookup are
+// csrc/pq_stage.cuh's, which csrc/pq_adc_smem.cu shares.
+// - Lanes take (query, row) pairs over the interleaved tables, so two
+//   rows collide only where their codes agree modulo 32 / kQ. Expected
+//   shared-memory wavefronts a lookup instruction (a simulation over
+//   random codes): 2.10 at M = 16 (kQ = 8), 2.54 at M = 32, 2.92 at
+//   M = 64, against 3.15 for 32 lanes on 32 rows of one query (qdist.cu's
+//   layout).
 // - Each warp keeps one sorted list a query across its lanes, in
 //   registers (topk.cuh's WarpList), and a lane keeps its query's k-th. A
 //   step's 32 distances take one ballot against those; after the first
@@ -66,36 +59,31 @@
 #include <math_constants.h>
 
 #include "hopper.cuh"
+#include "pq_stage.cuh"
 #include "topk.cuh"
 
 namespace {
 
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileRows = 32;               // rows a bulk copy brings
+using pq_stage::kThreads;
+using pq_stage::kTileRows;
+using pq_stage::kWarps;
 constexpr int kMaxK = topk::kMaxK;
 constexpr int kMaxSplits = 32;
 constexpr int kBuffered = 32;               // candidates a (warp, query) holds
 constexpr unsigned int kFull = 0xffffffffu;
 
 // Shared-memory layout for M subspaces (kernels/qdist.py
-// `pq_topk_smem_bytes` mirrors it).
+// `pq_topk_smem_bytes` mirrors it): pq_stage's ring, then the warps'
+// counts, candidate buffers and merge scratch.
 template <int M>
-struct Layout {
-  static constexpr int kQ = 128 / M;        // queries a CTA
-  static constexpr int kRows = 32 / kQ;     // rows a warp takes a step
-  static constexpr int kStages = M <= 32 ? 3 : 2;
-  static constexpr int kTable = kQ * M * 256 * 4;
-  static constexpr int kCodeStage = kTileRows * M;
-  static constexpr int kXpadStage = kTileRows * 4;
-  static constexpr int kCodes = kTable;
-  static constexpr int kXpad = kCodes + kWarps * kStages * kCodeStage;
-  static constexpr int kBars = kXpad + kWarps * kStages * kXpadStage;
-  static constexpr int kCounts = kBars + kWarps * kStages * 8;
-  static constexpr int kBuffers = kCounts + kQ * kWarps * 4;
-  static constexpr int kScratch = kBuffers + kWarps * kQ * kBuffered * 8;
+struct Layout : pq_stage::Ring<M> {
+  using R = pq_stage::Ring<M>;
+  static constexpr int kCounts = R::kEnd;
+  static constexpr int kBuffers = kCounts + R::kQ * kWarps * 4;
+  static constexpr int kScratch = kBuffers + kWarps * R::kQ * kBuffered * 8;
   static constexpr int kBytes = kScratch + kWarps * kMaxK * 8;
-  static_assert(kQ * kWarps * kMaxK * 8 <= kTable, "merge lists fit the tables");
+  static_assert(R::kQ * kWarps * kMaxK * 8 <= R::kTable,
+                "merge lists fit the tables");
 };
 
 // Merge one warp's n buffered candidates (each before the list's k-th)
@@ -181,51 +169,18 @@ pq_topk_smem_kernel(const float* __restrict__ luts,      // [Bq, M, 256]
   const int my_tiles =
       warp < n_tiles ? (n_tiles - warp + kWarps - 1) / kWarps : 0;
   const long long bx4 = static_cast<long long>(Bx) & ~3LL;
-
-  uint8_t* code_s = smem + L::kCodes + warp * kStages * L::kCodeStage;
-  float* xpad_s = reinterpret_cast<float*>(smem + L::kXpad) +
-                  warp * kStages * kTileRows;
-  const uint32_t bar0 = hopper::smem_u32(smem + L::kBars) + warp * kStages * 8;
-
-  // tile j of this warp -> its stage j % kStages
-  auto issue = [&](int j) {
-    const long long t0 = lo + static_cast<long long>(warp + j * kWarps) * kTileRows;
-    const int n = static_cast<int>(min(static_cast<long long>(kTileRows), hi - t0));
-    const int nx = xpad == nullptr ? 0
-        : static_cast<int>(max(0LL, min(static_cast<long long>(n), bx4 - t0)));
-    const int st = j % kStages;
-    const uint32_t bar = bar0 + 8 * st;
-    hopper::mbar_expect_tx(bar, n * M + nx * 4);
-    hopper::bulk_load(hopper::smem_u32(code_s + st * L::kCodeStage),
-                      codes + t0 * M, n * M, bar);
-    if (nx > 0)
-      hopper::bulk_load(hopper::smem_u32(xpad_s + st * kTileRows), xpad + t0,
-                        nx * 4, bar);
+  const pq_stage::WarpRing<M> ring(smem, warp);
+  auto tile_row = [&](int j) {
+    return lo + static_cast<long long>(warp + j * kWarps) * kTileRows;
   };
 
   if (lane == 0) {
-    for (int st = 0; st < kStages; ++st) hopper::mbar_init(bar0 + 8 * st, 1);
-    hopper::mbar_fence_init();
-    for (int j = 0; j < kStages && j < my_tiles; ++j) issue(j);
+    ring.init();
+    for (int j = 0; j < kStages && j < my_tiles; ++j)
+      ring.issue(j, codes, xpad, tile_row(j), hi, bx4);
   }
-
-  // the CTA's tables, interleaved (zeros past Bq); overlaps the first copies
-  for (int e = tid; e < M * 256; e += kThreads) {
-    float v[kQ];
-#pragma unroll
-    for (int qi = 0; qi < kQ; ++qi)
-      v[qi] = q0 + qi < Bq
-                  ? __ldg(luts + static_cast<long long>(q0 + qi) * (M * 256) + e)
-                  : 0.f;
-    if constexpr (kQ >= 4) {
-#pragma unroll
-      for (int qi = 0; qi < kQ; qi += 4)
-        *reinterpret_cast<float4*>(lut_s + e * kQ + qi) =
-            make_float4(v[qi], v[qi + 1], v[qi + 2], v[qi + 3]);
-    } else {
-      *reinterpret_cast<float2*>(lut_s + e * kQ) = make_float2(v[0], v[1]);
-    }
-  }
+  // the CTA's tables; overlaps the first copies
+  pq_stage::load_tables<M>(luts, lut_s, q0, Bq, tid);
   __syncthreads();
 
   const int qi = lane % kQ;                 // this lane's query
@@ -259,32 +214,16 @@ pq_topk_smem_kernel(const float* __restrict__ luts,      // [Bq, M, 256]
   };
 
   for (int j = 0; j < my_tiles; ++j) {
-    const int st = j % kStages;
-    const long long t0 = lo + static_cast<long long>(warp + j * kWarps) * kTileRows;
-    hopper::mbar_wait(bar0 + 8 * st, (j / kStages) & 1);
-    const uint8_t* cs = code_s + st * L::kCodeStage;
-    const float* xs = xpad_s + st * kTileRows;
+    const long long t0 = tile_row(j);
+    ring.wait(j);
+    const uint8_t* cs = ring.codes(j);
+    const float* xs = ring.xpad(j);
 #pragma unroll 2
     for (int step = 0; step < kTileRows / kRows; ++step) {
       const int r = step * kRows + rl;
       const long long row = t0 + r;
-      float acc = 0.f;
-      if (xpad != nullptr)
-        acc = row < bx4 ? xs[r] : row < hi ? __ldg(xpad + row) : 0.f;
-      const uint4* cw = reinterpret_cast<const uint4*>(cs + r * M);
-#pragma unroll
-      for (int v = 0; v < M / 16; ++v) {
-        const uint4 w4 = cw[v];
-        const unsigned int w[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-        for (int h = 0; h < 4; ++h)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const int m = 16 * v + 4 * h + b;
-            const unsigned int c = (w[h] >> (8 * b)) & 0xffu;
-            acc = __fadd_rn(acc, lq[(m * 256 + static_cast<int>(c)) * kQ]);
-          }
-      }
+      const float acc = pq_stage::adc_row<M>(
+          cs + r * M, lq, pq_stage::row_start(xs, xpad, r, row, bx4, hi));
       const float d = row < hi ? acc : CUDART_INF_F;
       const int id = static_cast<int>(row);
       const bool in = topk::before(d, id, kd, ki);
@@ -303,7 +242,7 @@ pq_topk_smem_kernel(const float* __restrict__ luts,      // [Bq, M, 256]
     // every lane has read the stage: it may take tile j + kStages
     if (lane == 0 && j + kStages < my_tiles) {
       hopper::fence_proxy_async();
-      issue(j + kStages);
+      ring.issue(j + kStages, codes, xpad, tile_row(j + kStages), hi, bx4);
     }
   }
   if (__any_sync(kFull, held > 0)) merge_all();

@@ -50,9 +50,19 @@ finite distance fills (fewer than k rows, or padding rows) holds
 size; the finite slots agree.
 
 `*_ref` are the plain versions: the CPU path and the yardstick the
-kernels are compared with on the card. `pq_adc_cuda` launches
-`csrc/qdist.cu` and counts in `ADC_LAUNCHES`. `pq_topk_cuda` picks one of
-two kernels by shape and alignment (`pq_topk_route`), never by value:
+kernels are compared with on the card. `pq_adc_cuda` picks one of two
+kernels by shape and alignment (`pq_adc_route`), never by value:
+
+- M in {16, 32, 64}, 16-byte aligned codes and xpad, Bx >= 1 ->
+  `pq_adc_smem_cuda`, `csrc/pq_adc_smem.cu` (`pq_topk_smem.cu`'s layout
+  without the selection: each warp stages its tile's distances in shared
+  memory and writes whole 128-byte row segments), counted in
+  `ADC_SMEM_LAUNCHES`;
+- the rest -> `pq_adc_v1_cuda`, `csrc/qdist.cu` (a thread a row), counted
+  in `ADC_LAUNCHES`.
+
+`pq_topk_cuda` picks one of two kernels by shape and alignment
+(`pq_topk_route`), never by value:
 
 - M in {16, 32, 64}, 16-byte aligned codes and xpad, k <= 64 ->
   `pq_topk_smem_cuda`, `csrc/pq_topk_smem.cu` (queries across lanes over
@@ -87,19 +97,23 @@ from repro_torch.kernels.l2topk import (
     splits_for,
 )
 
-__all__ = ["ADC_LAUNCHES", "TOPK_LAUNCHES", "TOPK_SMEM_LAUNCHES",
+__all__ = ["ADC_LAUNCHES", "ADC_SMEM_LAUNCHES", "TOPK_LAUNCHES",
+           "TOPK_SMEM_LAUNCHES",
            "L2DIST_Q_LAUNCHES",
            "L2DIST_Q_TC_LAUNCHES", "L2TOPK_Q_LAUNCHES",
            "L2TOPK_Q_TC_LAUNCHES", "MAX_K", "l2dist_q_ref", "l2dist_q_cuda",
            "l2dist_q_fma_cuda", "l2dist_q_tc_cuda", "l2topk_q_ref",
            "l2topk_q_cuda", "l2topk_q_fma_cuda", "l2topk_q_tc_cuda",
-           "pq_adc_ref", "pq_topk_ref", "pq_adc_cuda", "pq_topk_cuda",
+           "pq_adc_ref", "pq_topk_ref", "pq_adc_cuda", "pq_adc_route",
+           "pq_adc_smem_bytes", "pq_adc_smem_cuda", "pq_adc_v1_cuda",
+           "pq_topk_cuda",
            "pq_topk_route", "pq_topk_smem_bytes", "pq_topk_smem_cuda",
            "pq_topk_splits", "pq_topk_v1_cuda", "takes_tensor_cores",
            "takes_tensor_cores_dist"]
 
 # launches of each CUDA kernel since import (or since a caller reset them)
-ADC_LAUNCHES = 0
+ADC_LAUNCHES = 0                  # csrc/qdist.cu's pq_adc
+ADC_SMEM_LAUNCHES = 0             # csrc/pq_adc_smem.cu
 TOPK_LAUNCHES = 0                 # csrc/qdist.cu's pq_topk
 TOPK_SMEM_LAUNCHES = 0            # csrc/pq_topk_smem.cu
 L2DIST_Q_LAUNCHES = 0             # csrc/l2dist.cu over code rows
@@ -117,9 +131,10 @@ _THREADS = 256
 # CTAs that fill the card: a few per SM of the H100's 132
 _ADC_CTAS, _TOPK_CTAS = 8 * 132, 4 * 132
 
-# csrc/pq_topk_smem.cu: the subspace counts it is compiled for (128 / M
-# queries a CTA, 128 KB of tables), its warps and rows a bulk copy, and
-# the dynamic shared memory a CTA may take on the H100
+# csrc/pq_topk_smem.cu and csrc/pq_adc_smem.cu: the subspace counts they
+# are compiled for (128 / M queries a CTA, 128 KB of tables), their warps
+# and rows a bulk copy, and the dynamic shared memory a CTA may take on
+# the H100
 SMEM_M = (16, 32, 64)
 _SMEM_WARPS, _SMEM_TILE_ROWS = 16, 32
 SMEM_BUDGET = 232_448
@@ -178,6 +193,11 @@ _SIGNATURES = {
     "repro_pq_adc": (ctypes.c_int, [_P] * 4 + [_I] * 7 + [_P]),
     "repro_pq_topk": (ctypes.c_int, [_P] * 7 + [_I] * 8 + [_P]),
     "repro_qdist_error_string": (ctypes.c_char_p, [_I]),
+}
+_ADC_SMEM_SIGNATURES = {
+    "repro_pq_adc_smem": (ctypes.c_int, [_P] * 4 + [_I] * 5 + [_P]),
+    "repro_pq_adc_smem_bytes": (ctypes.c_int, [_I]),
+    "repro_pq_adc_smem_error_string": (ctypes.c_char_p, [_I]),
 }
 _SMEM_SIGNATURES = {
     "repro_pq_topk_smem": (ctypes.c_int, [_P] * 7 + [_I] * 7 + [_P]),
@@ -245,7 +265,7 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
-def pq_adc_cuda(luts, codes, xpad=None):
+def pq_adc_v1_cuda(luts, codes, xpad=None):
     """Launch `csrc/qdist.cu`'s ADC matrix kernel on the current stream;
     returns d [Bq, Bx] float32. Raises on any other device, dtype, shape
     or layout."""
@@ -263,6 +283,76 @@ def pq_adc_cuda(luts, codes, xpad=None):
     _raise_on(lib, err, "pq_adc")
     ADC_LAUNCHES += 1
     return out
+
+
+def pq_adc_smem_bytes(m: int) -> int:
+    """Dynamic shared memory of a `csrc/pq_adc_smem.cu` CTA at m
+    subspaces, its `Layout<M>` in the same order: 128 / m queries' tables,
+    each warp's ring of code and xpad stages (3 stages at m <= 32, else
+    2), a mbarrier a stage, and each warp's staged distances, 32 + 32 /
+    (128 / m) words a query."""
+    kq, stages = 128 // m, 3 if m <= 32 else 2
+    ring = _SMEM_WARPS * stages
+    return (kq * m * 256 * 4 + ring * _SMEM_TILE_ROWS * m
+            + ring * _SMEM_TILE_ROWS * 4 + ring * 8
+            + _SMEM_WARPS * kq * (_SMEM_TILE_ROWS + 32 // kq) * 4)
+
+
+def pq_adc_route(luts, codes, xpad=None) -> bool:
+    """Whether `pq_adc_cuda` gives these operands to
+    `csrc/pq_adc_smem.cu`: float32 tables [Bq, M, 256] with M in `SMEM_M`
+    and a CTA within `SMEM_BUDGET`, uint8 codes [Bx, M] with Bx >= 1, Bq
+    within the grid, and 16-byte aligned codes and xpad (TMA bulk copies
+    move 16-byte multiples between 16-byte aligned addresses; every copy
+    is whole rows of M bytes, M % 16 == 0). The output needs nothing more:
+    the wrapper allocates it, and its row segments are plain coalesced
+    stores. Reads shapes, dtypes and addresses only, never values."""
+    if luts.dim() != 3 or codes.dim() != 2:
+        return False
+    bq, m = luts.shape[0], luts.shape[1]
+    return (m in SMEM_M and pq_adc_smem_bytes(m) <= SMEM_BUDGET
+            and luts.dtype == torch.float32 and codes.dtype == torch.uint8
+            and 0 < codes.shape[0] < 2 ** 31
+            and -(-bq // (128 // m)) <= 65535
+            and codes.data_ptr() % 16 == 0
+            and (xpad is None or xpad.data_ptr() % 16 == 0))
+
+
+def pq_adc_smem_cuda(luts, codes, xpad=None):
+    """Launch `csrc/pq_adc_smem.cu` on the current stream; returns d [Bq,
+    Bx] float32. Raises on operands `pq_adc_route` refuses, as
+    `pq_adc_v1_cuda` does, and if the launch fails."""
+    global ADC_SMEM_LAUNCHES
+    bq, bx, m, _, _, dev = _launch_shape(luts, codes, xpad)
+    if not pq_adc_route(luts, codes, xpad):
+        raise ValueError(f"pq_adc: the shared-memory kernel takes M in "
+                         f"{SMEM_M}, Bx >= 1 and 16-byte aligned codes and "
+                         f"xpad; got M={m}, Bx={bx}")
+    out = torch.empty((bq, bx), dtype=torch.float32, device=dev)
+    # one CTA an SM: S CTAs along the rows of each of the query groups,
+    # near the H100's 132 SMs and never past a warp's share of the tiles
+    groups = -(-bq // (128 // m))
+    tiles = -(-bx // _SMEM_TILE_ROWS)
+    splits = max(1, min(132 // groups, -(-tiles // _SMEM_WARPS)))
+    lib = _build.load("pq_adc_smem", _ADC_SMEM_SIGNATURES)
+    err = lib.repro_pq_adc_smem(
+        luts.data_ptr(), codes.data_ptr(),
+        None if xpad is None else xpad.data_ptr(), out.data_ptr(),
+        dev.index or 0, bq, bx, m, splits,
+        torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(lib, "repro_pq_adc_smem_error_string", err,
+             "pq_adc (shared memory)")
+    ADC_SMEM_LAUNCHES += 1
+    return out
+
+
+def pq_adc_cuda(luts, codes, xpad=None):
+    """d [Bq, Bx] float32 from one of the two CUDA kernels, chosen by
+    shape and alignment: `pq_adc_smem_cuda` where `pq_adc_route` holds,
+    else `pq_adc_v1_cuda`. Raises as they do."""
+    if pq_adc_route(luts, codes, xpad):
+        return pq_adc_smem_cuda(luts, codes, xpad)
+    return pq_adc_v1_cuda(luts, codes, xpad)
 
 
 def pq_topk_v1_cuda(luts, codes, xpad=None, *, k: int = 10):

@@ -60,7 +60,7 @@ from repro_torch.kernels.l2dist import raise_on
 
 __all__ = ["ASYNC_LAUNCHES", "LAUNCHES", "METRICS",
            "async_blocks_per_sm", "async_smem_bytes", "async_smem_bytes_cuda",
-           "fused_traversal_ref", "fused_traversal_async_cuda",
+           "beam_merge", "fused_traversal_ref", "fused_traversal_async_cuda",
            "fused_traversal_cuda", "fused_traversal_ldg_cuda", "layer0_hop",
            "merge_sorted", "metric_distance", "traversal_route",
            "visited_test_and_set"]
@@ -136,6 +136,30 @@ def visited_test_and_set(bitmap, ids, valid):
 # ---------------------------------------------------------------------------
 
 
+def beam_merge(cand_d, cand_i, fin_d, fin_i, calcs, nbrs, act, d):
+    """The rest of one beam hop of every lane once its distances `d` [L,
+    M0] to the neighbors `nbrs` are known, `act` marking the valid and
+    unvisited ones: pop the candidate head (line 3), count the distance
+    evaluations, drop what cannot enter the final list (line 11 guard),
+    stable-sort the batch and rank-merge it into both lists. Returns the
+    new (cand_d, cand_i, fin_d, fin_i, calcs) of every lane; the caller
+    keeps the old ones where a lane does not move."""
+    C, EF = cand_d.shape[1], fin_d.shape[1]
+    pcand_d = torch.cat([cand_d[:, 1:], torch.full_like(cand_d[:, :1], _INF)],
+                        dim=1)
+    pcand_i = torch.cat([cand_i[:, 1:], torch.full_like(cand_i[:, :1], -1)],
+                        dim=1)
+    d = torch.where(act, d, _INF)
+    ncalcs = calcs + act.sum(1, dtype=calcs.dtype)
+    d = torch.where(d < fin_d[:, -1:], d, _INF)
+    ids = torch.where(torch.isfinite(d), nbrs, -1)
+    bd, order = torch.sort(d, dim=1, stable=True)
+    bi = ids.gather(1, order)
+    fd, fi = merge_sorted(fin_d, fin_i, bd, bi)
+    cd, ci = merge_sorted(pcand_d, pcand_i, bd, bi)
+    return cd[:, :C], ci[:, :C], fd[:, :EF], fi[:, :EF], ncalcs
+
+
 def layer0_hop(l0_nbrs, part, distances, cand_d, cand_i, fin_d, fin_i,
                visited, hops, calcs, *, max_hops: int) -> bool:
     """One layer-0 hop for every live lane, in place.
@@ -145,37 +169,23 @@ def layer0_hop(l0_nbrs, part, distances, cand_d, cand_i, fin_d, fin_i,
     [L, M0]. Returns False, having changed nothing, when no lane is live.
     The superstep below and the hop-stepped PQ layer 0 of `core/search.py`
     share this body."""
-    C, EF = cand_d.shape[1], fin_d.shape[1]
     live = (cand_d[:, 0] < fin_d[:, -1]) & (hops < max_hops)
     if not bool(live.any()):
         return False
     c = cand_i[:, 0].clamp_min(0).long()
-    pcand_d = torch.cat([cand_d[:, 1:], torch.full_like(cand_d[:, :1], _INF)],
-                        dim=1)                                 # pop (line 3)
-    pcand_i = torch.cat([cand_i[:, 1:], torch.full_like(cand_i[:, :1], -1)],
-                        dim=1)
-
     nbrs = l0_nbrs[part, c]                                    # [L, M0]
     valid = nbrs >= 0
     safe = torch.where(valid, nbrs, torch.zeros_like(nbrs))
     was, vis2 = visited_test_and_set(visited, safe, valid)
-    act = valid & ~was
-    d = torch.where(act, distances(safe.long()), _INF)
-    ncalcs = calcs + act.sum(1, dtype=torch.int32)
-    # line 11 guard: only candidates that can enter the final list
-    d = torch.where(d < fin_d[:, -1:], d, _INF)
-    ids = torch.where(torch.isfinite(d), safe, -1)
-    bd, order = torch.sort(d, dim=1, stable=True)
-    bi = ids.gather(1, order)
-
-    fd, fi = merge_sorted(fin_d, fin_i, bd, bi)
-    cd, ci = merge_sorted(pcand_d, pcand_i, bd, bi)
+    cd, ci, fd, fi, ncalcs = beam_merge(cand_d, cand_i, fin_d, fin_i, calcs,
+                                        safe, valid & ~was,
+                                        distances(safe.long()))
     lv = live[:, None]
     visited.copy_(torch.where(lv, vis2, visited))
-    cand_d.copy_(torch.where(lv, cd[:, :C], cand_d))
-    cand_i.copy_(torch.where(lv, ci[:, :C], cand_i))
-    fin_d.copy_(torch.where(lv, fd[:, :EF], fin_d))
-    fin_i.copy_(torch.where(lv, fi[:, :EF], fin_i))
+    cand_d.copy_(torch.where(lv, cd, cand_d))
+    cand_i.copy_(torch.where(lv, ci, cand_i))
+    fin_d.copy_(torch.where(lv, fd, fin_d))
+    fin_i.copy_(torch.where(lv, fi, fin_i))
     calcs.copy_(torch.where(live, ncalcs, calcs))
     hops.add_(live.to(hops.dtype))
     return True

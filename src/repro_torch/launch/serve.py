@@ -7,13 +7,16 @@ runs on the card unless `--device cpu` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --n 20000 \\
       --partitions 4 --batch 64 --num-batches 50 --backend partitioned
 
-The reference's async (dynamic batcher + replica pool), cluster, tracing
-and SLO flags belong to later slices of the port and are not accepted yet.
+`--backend csd` serves out of core from a block store at `--storage` (a
+new temporary directory when it is not given). The reference's async
+(dynamic batcher + replica pool), cluster, tracing and SLO flags belong to
+later slices of the port and are not accepted yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
 
 import numpy as np
@@ -55,10 +58,15 @@ def serve_loop(service, queries, batch: int, k: int, ef: int,
 
 
 def build_service(args, ds: VectorDataset) -> SearchService:
+    storage = args.storage
+    if args.backend == "csd" and not storage:
+        storage = tempfile.mkdtemp(prefix="repro-serve-csd-")
+        print(f"[serve] --storage not given; csd block store at {storage}")
     spec = IndexSpec(metric=args.metric, backend=args.backend,
                      num_partitions=args.partitions,
                      hnsw=HNSWConfig(M=args.M),
-                     keep_vectors=args.rerank)
+                     keep_vectors=args.rerank and args.backend != "csd",
+                     storage_path=storage)
     print(f"[serve] building {spec.backend} index "
           f"({args.partitions} partitions, metric={spec.metric}) over "
           f"{args.n} vectors on {args.device or 'cuda'} ...")
@@ -81,8 +89,10 @@ def main(argv=None):
     ap.add_argument("--metric", default="l2",
                     choices=["l2", "ip", "cosine"])
     ap.add_argument("--backend", default="partitioned",
-                    choices=["exact", "hnsw", "partitioned"])
+                    choices=["exact", "hnsw", "partitioned", "csd"])
     ap.add_argument("--rerank", action="store_true")
+    ap.add_argument("--storage", default=None,
+                    help="csd block-store directory (default: a tempdir)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="where the index lives (default: cuda; raises "
                          "when no CUDA device is visible)")

@@ -10,9 +10,10 @@ Where fewer than k rows are finite, the reference's +inf slots carry ids
 that depend on its block size; the port's hold -1, and only the finite
 slots are compared.
 
-`pq_topk_cuda` picks one of two kernels by shape and alignment
-(`pq_topk_route`): the rule, the shared-memory mirror of
-`csrc/pq_topk_smem.cu` and its splits are checked here. The CUDA kernels
+`pq_topk_cuda` and `pq_adc_cuda` each pick one of two kernels by shape
+and alignment (`pq_topk_route`, `pq_adc_route`): the rules, the
+shared-memory mirrors of `csrc/pq_topk_smem.cu` and `csrc/pq_adc_smem.cu`
+and the top-k's splits are checked here. The CUDA kernels
 against the plain versions run only where there is a card (the `cuda`
 marker); here they skip.
 """
@@ -136,6 +137,21 @@ def test_pq_topk_m16_ragged_matches_reference_bitwise(bq, bx, k):
     np.testing.assert_array_equal(gi.numpy(), wi)
 
 
+@pytest.mark.parametrize("bq,bx", [(9, 2083), (1, 31), (17, 4100)])
+def test_pq_adc_m16_ragged_matches_reference_bitwise(bq, bx):
+    """ops.pq_adc at M = 16 (the shared-memory kernel's main shape) with
+    Bq not a multiple of its 8 queries a CTA and Bx not a multiple of its
+    32-row tiles or of the 4-row xpad copies, float tables and +inf
+    padding rows, against the reference's Pallas kernel."""
+    luts, codes = _luts_codes(bq, bx, 16, seed=bq + bx)
+    xpad = np.zeros(bx, np.float32)
+    xpad[bx - bx // 5:] = np.inf
+    want = np.asarray(ref_ops.pq_adc(luts, codes, xpad))
+    got = ops.pq_adc(*map(torch.from_numpy, (luts, codes, xpad)))
+    assert np.isinf(want[:, bx - bx // 5:]).all()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def _aligned(shape, dtype, offset=0):
     """A tensor of `shape` whose data starts `offset` elements into a
     256-byte aligned buffer."""
@@ -165,6 +181,48 @@ def test_pq_topk_route_rule(case, taken):
         xpad = _aligned((bx,), torch.float32, 1 if "unaligned" in case else 0)
     assert codes.data_ptr() % 16 == (1 if case == "codes unaligned" else 0)
     assert qdist.pq_topk_route(luts, codes, xpad, k) is taken
+
+
+@pytest.mark.parametrize("case,taken", [
+    ("m16", True), ("m32", True), ("m64", True), ("m16 xpad", True),
+    ("m8", False), ("m48", False), ("m128", False), ("m4", False),
+    ("codes unaligned", False), ("xpad unaligned", False), ("no rows", False),
+    ("int8 codes", False), ("float64 luts", False),
+])
+def test_pq_adc_route_rule(case, taken):
+    """The shared-memory ADC kernel takes M in {16, 32, 64}, float32
+    tables, uint8 codes, Bx >= 1 and 16-byte aligned codes and xpad; the
+    output needs nothing more (plain coalesced row segments). Everything
+    else goes to qdist.cu."""
+    m = int(case.split()[0][1:]) if case[0] == "m" else 16
+    bx = 0 if case == "no rows" else 100
+    luts = torch.zeros((3, m, 256), dtype=torch.float64 if "float64" in case
+                       else torch.float32)
+    codes = _aligned((bx, m), torch.int8 if case == "int8 codes"
+                     else torch.uint8, 1 if case == "codes unaligned" else 0)
+    xpad = None
+    if "xpad" in case:
+        xpad = _aligned((bx,), torch.float32, 1 if "unaligned" in case else 0)
+    assert qdist.pq_adc_route(luts, codes, xpad) is taken
+
+
+def test_pq_adc_smem_bytes_hand_count():
+    """The Python mirror of pq_adc_smem.cu's layout against a hand count:
+    tables, 16 warps' stage rings of 32-row code and xpad tiles, a
+    mbarrier a stage, and each warp's staged distances (128 / M queries x
+    (32 + M / 4) words); every M fits the H100's 232,448 bytes."""
+    tables = 128 * 1024
+    assert qdist.pq_adc_smem_bytes(16) == (
+        tables + 16 * 3 * 32 * 16 + 16 * 3 * 128 + 16 * 3 * 8
+        + 16 * 8 * 36 * 4) == 180_608
+    assert qdist.pq_adc_smem_bytes(32) == (
+        tables + 16 * 3 * 32 * 32 + 16 * 3 * 128 + 16 * 3 * 8
+        + 16 * 4 * 40 * 4)
+    assert qdist.pq_adc_smem_bytes(64) == (
+        tables + 16 * 2 * 32 * 64 + 16 * 2 * 128 + 16 * 2 * 8
+        + 16 * 2 * 48 * 4)
+    for m in qdist.SMEM_M:
+        assert qdist.pq_adc_smem_bytes(m) <= qdist.SMEM_BUDGET
 
 
 def test_pq_topk_smem_bytes_hand_count():
@@ -217,8 +275,10 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     ops.pq_adc(luts, codes)
     ops.pq_topk(luts, codes, k=3)
     assert calls == ["a", "t"]
-    with pytest.raises(ValueError, match="CUDA"):
-        qdist.pq_adc_cuda(luts, codes)
+    for fn in (qdist.pq_adc_cuda, qdist.pq_adc_v1_cuda,
+               qdist.pq_adc_smem_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(luts, codes)
     with pytest.raises(ValueError, match="CUDA"):
         qdist.pq_topk_cuda(luts, codes, k=3)
 
@@ -246,12 +306,80 @@ def test_cuda_pq_adc_matches_plain_version(bq, bx, m, with_xpad):
         xpad = torch.zeros(bx, device=dev)
         xpad[bx // 2:] = float("inf")
     tl, tc = torch.from_numpy(luts).to(dev), torch.from_numpy(codes).to(dev)
-    launches = qdist.ADC_LAUNCHES
+    launches = qdist.ADC_LAUNCHES, qdist.ADC_SMEM_LAUNCHES
     got = qdist.pq_adc_cuda(tl, tc, xpad)
     want = qdist.pq_adc_ref(tl, tc, xpad)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert qdist.ADC_LAUNCHES == launches + 1
+    smem = qdist.pq_adc_route(tl, tc, xpad)
+    assert (qdist.ADC_LAUNCHES - launches[0],
+            qdist.ADC_SMEM_LAUNCHES - launches[1]) == (
+        (0, 1) if smem else (1, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bq,bx,m", [
+    (3, 5, 16), (1, 1, 16), (9, 2083, 16), (256, 32768, 16), (8, 31, 16),
+    (5, 777, 32), (17, 4100, 32), (3, 1000, 64), (4, 2049, 64), (2, 33, 64),
+])
+@pytest.mark.parametrize("tables", ["float", "integer"])
+@pytest.mark.parametrize("with_xpad", [False, True])
+def test_cuda_pq_adc_both_routes_match_plain_version(bq, bx, m, tables,
+                                                     with_xpad):
+    """Both ADC kernels bitwise equal to the plain version at the
+    shared-memory kernel's edges: Bx < 32 (one short tile), ragged Bq (not
+    a multiple of 128 / M) and Bx (not a multiple of 32 or 4), every M it
+    takes, float tables and integer tables in [0, 8), +inf padding rows."""
+    dev = _cuda()
+    rng = np.random.default_rng(bq * bx + m)
+    lut_np = (rng.integers(0, 8, size=(bq, m, 256)).astype(np.float32)
+              if tables == "integer"
+              else rng.uniform(0, 50, size=(bq, m, 256)).astype(np.float32))
+    tl = torch.from_numpy(lut_np).to(dev)
+    tc = torch.from_numpy(rng.integers(0, 256, size=(bx, m)).astype(
+        np.uint8)).to(dev)
+    xpad = None
+    if with_xpad:
+        xpad = torch.zeros(bx, device=dev)
+        xpad[bx - bx // 5:] = float("inf")
+    assert qdist.pq_adc_route(tl, tc, xpad)
+    want = qdist.pq_adc_ref(tl, tc, xpad)
+    launches = qdist.ADC_LAUNCHES, qdist.ADC_SMEM_LAUNCHES
+    for fn in (qdist.pq_adc_smem_cuda, qdist.pq_adc_v1_cuda,
+               qdist.pq_adc_cuda):
+        got = fn(tl, tc, xpad)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), fn.__name__
+    assert (qdist.ADC_LAUNCHES - launches[0],
+            qdist.ADC_SMEM_LAUNCHES - launches[1]) == (1, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_pq_adc_routes_by_shape_and_the_layout_mirror():
+    """M = 8 and unaligned codes go to qdist.cu, M = 16 to the shared-memory
+    kernel; the kernel's own byte count equals the Python mirror."""
+    from repro_torch.kernels import _build
+
+    dev = _cuda()
+    lib = _build.load("pq_adc_smem", qdist._ADC_SMEM_SIGNATURES)
+    for m in qdist.SMEM_M:
+        assert lib.repro_pq_adc_smem_bytes(m) == qdist.pq_adc_smem_bytes(m)
+    assert lib.repro_pq_adc_smem_bytes(48) == 0
+    buf = torch.zeros(16 * 101, dtype=torch.uint8, device=dev)
+    for m, codes, smem in ((8, buf[:800].view(100, 8), False),
+                           (16, buf[1:1601].view(100, 16), False),
+                           (16, buf[:1600].view(100, 16), True)):
+        luts = torch.ones((3, m, 256), device=dev)
+        before = qdist.ADC_LAUNCHES, qdist.ADC_SMEM_LAUNCHES
+        got = qdist.pq_adc_cuda(luts, codes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, qdist.pq_adc_ref(luts, codes))
+        assert (qdist.ADC_LAUNCHES - before[0],
+                qdist.ADC_SMEM_LAUNCHES - before[1]) == (
+            (0, 1) if smem else (1, 0)), (m, codes.data_ptr() % 16)
+    with pytest.raises(ValueError, match="shared-memory"):
+        qdist.pq_adc_smem_cuda(torch.ones((3, 8, 256), device=dev),
+                               buf[:800].view(100, 8))
 
 
 @pytest.mark.cuda

@@ -3,9 +3,9 @@
 An index saved by the reference loads into the port (device="cpu") and
 answers bitwise the same on integer-valued data, rerank off and on; the
 port's save loads back into the reference. Also: exact-backend parity,
-no silent CPU fallback, the unported backends raise (quantized or not),
-the package imports
-no JAX and nothing of the reference, and the serve CLI runs on the CPU.
+no silent CPU fallback, the unported backend raises (quantized or not),
+csd refuses a spec without a block-store path, the package imports no
+JAX and nothing of the reference, and the serve CLI runs on the CPU.
 """
 
 import dataclasses
@@ -152,13 +152,21 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(data, ref_saved,
 
 
 @pytest.mark.parametrize("change", [
-    {"dtype": "uint8", "backend": "csd"},
-    {"dtype": "pq", "backend": "distributed"}, {"backend": "csd"},
-    {"backend": "distributed"}])
+    {"dtype": "pq", "backend": "distributed"}, {"backend": "distributed"}])
 def test_unported_branches_raise(data, change):
     v, _ = data
     spec = dataclasses.replace(IndexSpec(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SearchService.build(v, spec, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_csd_needs_a_storage_path(data, dtype):
+    """As the reference's: the csd backend writes its database to a block
+    store, so a spec without `storage_path` is refused."""
+    v, _ = data
+    spec = IndexSpec(backend="csd", dtype=dtype)
+    with pytest.raises(ValueError, match="storage_path"):
         SearchService.build(v, spec, device="cpu")
 
 
@@ -184,7 +192,7 @@ def test_package_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 49
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
@@ -194,7 +202,7 @@ def test_chip_smoke_imports_no_jax_and_no_reference():
         assert bad not in src, bad
 
 
-@pytest.mark.parametrize("backend", ["partitioned", "exact"])
+@pytest.mark.parametrize("backend", ["partitioned", "exact", "csd"])
 def test_serve_cli_on_cpu(backend, capsys):
     stats = serve.main(["--n", "300", "--dim", "16", "--partitions", "2",
                         "--batch", "8", "--num-batches", "2", "--M", "4",
