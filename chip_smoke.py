@@ -13,8 +13,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                Then three worker processes start building the quantized
                indexes of phase 6 (uint8, int8 and pq partitioned, each
                through SearchService.build on the card, then saved), while
-               phases 3 and 4's build run; phase 4 waits for them before
-               it serves, so no build competes with a timed batch.
+               phases 3 and 4's build run, and a fourth builds the index
+               phase 6d's compaction must equal; phase 4 waits for them
+               (and stops the workers) before it serves, so no build
+               competes with a timed batch.
   3. kernel  — every kernel against its plain PyTorch version on the card
                at SIFT1M's table size, 1,000,000 rows: both layer-0
                traversal kernels (traversal_async.cu, through the
@@ -104,6 +106,50 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                batch's host time by the port's TRACER spans (store-read,
                hop_superstep, hop-kernel, rerank) and the device's busy
                time (torch.profiler) beside the batch's p50.
+
+  6c. serve  — the async serving layer (repro_torch.serve) over phase 4's
+               float32 partitioned service: SearchServer with max_wait_ms
+               = 2, each of the 2,048 queries its own request (k=10,
+               ef=40), rerank off and on, swept over replicas {1, 2, 4} x
+               max_batch {64, 256} (one stream a replica on the card), the
+               traversal launch counters reset just before the sweep and
+               read just after; then one profiled run a replica count
+               (max_batch 256) for the device's idle share (torch.profiler
+               busy time, the union of the streams' kernels, against the
+               wall clock); then phase 6b's float32 csd store behind 4
+               replicas, each opening its own page cache of 1/8 of the
+               store, over 1,024 queries; then one traced run with the
+               stock SLOs and the flight recorder. Checks: ids and dists
+               bitwise equal to the direct 256-query batches on every
+               run (their ids are phase 4's serve_loop ids; csd: phase
+               6b's serve_loop ids, and the partitioned service's dists),
+               traversal_async.cu launches > 0 and traversal.cu == 0 over
+               the sweep, every csd replica reads blocks, the trace file
+               (as --trace-out writes it) parses and nests request > exec
+               and batch > dispatch > search, the metrics snapshot holds
+               the serve_replica_* and slo_* series, the SLO status and
+               the flight dump are read back. Prints each run's QPS, e2e /
+               queue / exec p50 and p99, mean batch, per-replica busy
+               seconds, and the idle shares.
+  6d. ingest — the mutable index (repro_torch.ingest) on the card:
+               MutableSearchService(partitioned, P=4, fused_hops=4, M=16,
+               ef_construction=100, keep_vectors, seal_threshold=4,096)
+               behind a 2-replica SearchServer; the first N_INGEST =
+               16,384 of phase 4's vectors streamed in 16 inserts of
+               1,024 through SearchServer.insert, every 10th row of each
+               insert deleted once it is sealed (10 %), a 256-query batch
+               served rerank off and on after every insert; then
+               flush_index and compact_index. Checks: no deleted gid in
+               any result, before and after compaction; after compaction,
+               ids and dists bitwise equal to SearchService.build over the
+               surviving rows on the card (built by a worker process
+               beside phase 4's build) on all 2,048 queries, rerank off
+               and on; recall@10 >= 0.95 against the exact backend over
+               the survivors; a CPU copy (manifest v2 save, load
+               device="cpu") bitwise equal to the card on one batch;
+               traversal_async.cu launches > 0 and traversal.cu == 0.
+               Prints insert rows/s, seal and compaction seconds, search
+               p50 before and after compaction, and resident bytes.
 
   7. scan    — the exact-scan kernels through the public `kernels.ops` API,
                SIFT1M's size: 1,000,000 integer-valued 128-d float32 rows
@@ -215,6 +261,14 @@ N_MAIN, N_QUERIES, BATCH, PQ_M = 32768, 2048, 256, 16
 # the csd phase: block bytes, the page cache at most 1 / CSD_CACHE_SHARE
 # of its store, timed batches of each serving loop
 CSD_BLOCK, CSD_CACHE_SHARE, CSD_BATCHES = 4096, 8, 4
+# the serve phase: the sweep's replica counts and batcher sizes, the
+# batcher's wait, and the csd run's replicas (each on its own page cache)
+# and queries
+SERVE_REPLICAS, SERVE_MAX_BATCH, SERVE_WAIT_MS = (1, 2, 4), (64, 256), 2.0
+SERVE_CSD_REPLICAS, SERVE_CSD_QUERIES = 4, 1024
+# the ingest phase: rows streamed in inserts of INGEST_STEP, the seal
+# threshold, every INGEST_DEL-th row of each insert deleted once sealed
+N_INGEST, INGEST_STEP, INGEST_SEAL, INGEST_DEL = 16384, 1024, 4096, 10
 # the kernel phase's second synthetic graph: 65,536 rows, a 2,048-word
 # visited bitmap a lane, the widest traversal_async.cu keeps in shared memory
 N_SHARED = 65536
@@ -1319,11 +1373,11 @@ def csd_phase(tmp: str, parts: dict, queries) -> dict:
             f"blocks of {CSD_BLOCK}), written in "
             f"{time.perf_counter() - t0:.1f}s; page cache {cache} bytes "
             f"(1/{store / cache:.2f} of the store), prefetch on")
-        lat = {}
+        lat, served = {}, {}
         reset_adc_counts()
         for rerank in (False, True):
             svc.search(SearchRequest(q0, k=10, ef=40, rerank=rerank)).ids.cpu()
-            _, st = serve_loop(svc, queries[:BATCH * CSD_BATCHES], BATCH, 10,
+            served[rerank], st = serve_loop(svc, queries[:BATCH * CSD_BATCHES], BATCH, 10,
                                40, rerank=rerank,
                                log=lambda m: log(f"[{what}] rerank={rerank} "
                                                  f"{m}"))
@@ -1383,12 +1437,454 @@ def csd_phase(tmp: str, parts: dict, queries) -> dict:
         cpu.backend.reader.close()
         svc.backend.reader.close()
         out[dt] = {"store_bytes": store, "cache_bytes": cache,
+                   "spec": spec, "ids": served,
                    "serve": lat, "split": split, "busy_ms": busy,
                    "stats": {h: {f: getattr(s, f) for f in (
                        "block_reads", "bytes_read", "cache_hit_rate",
                        "supersteps")} for h, s in ((1, s1), (4, s4))}}
         log(f"[{what}] phase {time.perf_counter() - t0:.1f}s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: the async serving layer (repro_torch.serve)
+# ---------------------------------------------------------------------------
+
+
+def direct_results(svc, queries, rerank: bool):
+    """ids and dists of `svc.search` over `queries` in BATCH-query
+    batches, on the host (what serve_loop serves)."""
+    from repro_torch.api import SearchRequest
+
+    ids, dists = [], []
+    for i in range(0, len(queries), BATCH):
+        r = svc.search(SearchRequest(queries[i:i + BATCH], k=10, ef=40,
+                                     rerank=rerank))
+        ids.append(r.ids.cpu().numpy())
+        dists.append(r.dists.cpu().numpy())
+    return np.concatenate(ids), np.concatenate(dists)
+
+
+def busy_union_ms(events) -> float:
+    """ms in which at least one CUDA kernel or copy ran: the union of the
+    profiler's device intervals (replicas' streams may overlap)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for t0, t1 in spans:
+        if end is None or t0 > end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    return busy / 1e3
+
+
+def serve_async_run(svc, queries, replicas: int, max_batch: int,
+                    rerank: bool, profile: bool = False, **kw) -> dict:
+    """One SearchServer run: every query submitted as its own request;
+    returns the ids and dists on the host, the ServeStats rollup and the
+    wall seconds, and, if `profile`, the device's busy ms over the run
+    (torch.profiler)."""
+    from repro_torch.serve import SearchServer
+
+    prof = None
+    ctx = contextlib.nullcontext()
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+        ctx = prof
+    torch.cuda.synchronize()
+    with ctx:
+        t0 = time.perf_counter()
+        with SearchServer(svc, replicas=replicas, max_batch=max_batch,
+                          max_wait_ms=SERVE_WAIT_MS, **kw) as srv:
+            res = [f.result() for f in srv.submit_many(
+                queries, k=10, ef=40, rerank=rerank)]
+            roll = srv.stats()
+        wall = time.perf_counter() - t0
+    out = {"ids": np.stack([r.ids for r in res]),
+           "dists": np.stack([r.dists for r in res]), "stats": roll,
+           "wall_s": wall}
+    if prof is not None:
+        out["busy_ms"] = busy_union_ms(prof.events())
+        out["idle"] = 1 - out["busy_ms"] / (wall * 1e3)
+    return out
+
+
+def log_serve(what: str, run: dict) -> None:
+    st = run["stats"]
+    busy = ", ".join(f"{r['busy_s']:.3f}" for r in st.replicas)
+    log(f"[{what}] {st.completed} queries, QPS {st.qps:.1f}; e2e p50 / p99 "
+        f"{st.e2e_ms['p50']:.3f} / {st.e2e_ms['p99']:.3f} ms, queue "
+        f"{st.queue_ms['p50']:.3f} / {st.queue_ms['p99']:.3f}, exec "
+        f"{st.exec_ms['p50']:.3f} / {st.exec_ms['p99']:.3f}; mean batch "
+        f"{st.mean_batch:.1f} ({sum(st.batch_sizes.values())} batches); "
+        f"replica busy s [{busy}]"
+        + (f"; device busy {run['busy_ms']:.3f} ms of {run['wall_s'] * 1e3:.3f}"
+           f" (idle share {run['idle']:.3f}, torch.profiler)"
+           if "busy_ms" in run else ""))
+
+
+def check_same(what: str, run: dict, ids, dists) -> None:
+    check(np.array_equal(run["ids"], ids), f"{what}: async ids != direct")
+    check(np.array_equal(run["dists"], dists),
+          f"{what}: async dists != direct")
+
+
+def check_trace_file(path: str) -> None:
+    """The Perfetto JSON parses, and nests request > exec and batch >
+    dispatch > search (each span's parent, by the exported ids)."""
+    with open(path) as f:
+        doc = json.load(f)
+    evs = [ev for ev in doc["traceEvents"] if ev.get("ph") == "X"]
+    name_of = {ev["args"]["span_id"]: ev["name"] for ev in evs}
+    parents = {}
+    for ev in evs:
+        parents.setdefault(ev["name"], set()).add(
+            name_of.get(ev["args"]["parent_id"]))
+    for child, parent in (("exec", "request"), ("dispatch", "batch"),
+                          ("search", "dispatch")):
+        check(parents.get(child) == {parent},
+              f"trace: {child} spans' parents are {parents.get(child)}, "
+              f"not {{{parent!r}}}")
+    log(f"[serve] trace {path}: {len(evs)} spans, request > exec and batch "
+        f"> dispatch > search nested")
+
+
+def serve_obs_run(svc, queries, tmp: str) -> None:
+    """One traced run with the stock SLOs and the flight recorder: the
+    trace file as `--trace-out` writes it, a metrics snapshot taken while
+    the server lives (`--metrics-out`), the flight dump (`--flight-out`);
+    each read back."""
+    from repro_torch.obs import (TRACER, SLOTracker, default_slos,
+                                 write_snapshot)
+    from repro_torch.serve import SearchServer
+
+    paths = {n: str(Path(tmp) / n) for n in (
+        "trace.json", "metrics.json", "flight.json")}
+    slo = SLOTracker(default_slos(p99_ms=50.0, error_rate=0.01))
+    TRACER.configure(enabled=True, sample_rate=1.0)
+    TRACER.clear()
+    try:
+        with SearchServer(svc, replicas=2, max_batch=64,
+                          max_wait_ms=SERVE_WAIT_MS, slo=slo) as srv:
+            for f in srv.submit_many(queries, k=10, ef=40):
+                f.result()
+            status = srv.slo_status()      # sets the slo_* gauges
+            write_snapshot(paths["metrics.json"])
+            srv.debug_dump(paths["flight.json"])
+        TRACER.write(paths["trace.json"])
+    finally:
+        TRACER.configure(enabled=False)
+        TRACER.clear()
+    check_trace_file(paths["trace.json"])
+    with open(paths["metrics.json"]) as f:
+        snap = json.load(f)
+    names = {s["name"] for kind in ("counters", "gauges", "histograms")
+             for s in snap[kind]}
+    want = {"serve_replica_batches_total", "serve_replica_queries_total",
+            "serve_replica_busy_seconds_total", "serve_replica_inflight",
+            "serve_requests_total", "serve_e2e_ms", "slo_samples_total",
+            "slo_burn_rate"}
+    check(want <= names, f"metrics snapshot lacks {sorted(want - names)}")
+    with open(paths["flight.json"]) as f:
+        flight = json.load(f)["otherData"]["flight"]
+    check(flight["captured_total"] > 0 and flight["slowest"],
+          "flight recorder dump captured nothing")
+    check(len(status) == 2 and all("burn_long" in s for s in status),
+          f"SLO status {status}")
+    log(f"[serve] metrics snapshot {len(names)} series names (the "
+        f"serve_replica_* ones included), flight dump {len(flight['slowest'])}"
+        f" slowest (max {flight['slowest'][0]['e2e_ms']} ms), SLOs: "
+        + "; ".join(f"{s['slo']} burn {s['burn_long']:.2f}x "
+                    f"{'BREACH' if s['breaching'] else 'ok'}"
+                    for s in status))
+
+
+def serve_phase(svc, queries, main_out, csd_store, tmp: str) -> dict:
+    """Phase 4's float32 partitioned service through SearchServer: every
+    query its own request, the sweep SERVE_REPLICAS x SERVE_MAX_BATCH,
+    rerank off and on, ids and dists bitwise equal to the direct batches
+    (whose ids are phase 4's serve_loop ids); traversal_async.cu launched
+    and traversal.cu never over the sweep; the device's idle share over
+    one run at each replica count (torch.profiler). Then phase 6b's
+    float32 csd store behind SERVE_CSD_REPLICAS replicas, each on its own
+    page cache, over SERVE_CSD_QUERIES queries: ids equal to 6b's
+    serve_loop ids, dists to the partitioned service's (6b holds csd =
+    partitioned bitwise), and every replica reads blocks. Last, one traced
+    run with the SLOs and the flight recorder (serve_obs_run)."""
+    from repro_torch.api import SearchService
+    from repro_torch.kernels import traversal as tr
+    from repro_torch.serve import SearchServer
+    from repro_torch.store import CSDBackend
+
+    t_phase = time.perf_counter()
+    direct = {}
+    for rerank in (False, True):
+        direct[rerank] = direct_results(svc, queries, rerank)
+        check(np.array_equal(direct[rerank][0], main_out["ids"][rerank]),
+              f"serve: direct ids != phase 4's serve_loop ids "
+              f"(rerank={rerank})")
+    out = {"runs": {}}
+    tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
+    for replicas in SERVE_REPLICAS:
+        for max_batch in SERVE_MAX_BATCH:
+            for rerank in (False, True):
+                what = (f"serve r={replicas} b={max_batch} "
+                        f"rerank={'on' if rerank else 'off'}")
+                run = serve_async_run(svc, queries, replicas, max_batch,
+                                      rerank)
+                check_same(what, run, *direct[rerank])
+                log_serve(what, run)
+                out["runs"][replicas, max_batch, rerank] = run["stats"]
+    launches, ldg = tr.ASYNC_LAUNCHES, tr.LAUNCHES
+    log(f"[serve] traversal launches over the sweep: traversal_async.cu "
+        f"{launches}, traversal.cu {ldg}")
+    check(launches > 0, "the serve sweep launched no traversal_async.cu")
+    check(ldg == 0, f"the serve sweep launched traversal.cu {ldg} times")
+    out["launches"] = launches
+    # device idle share, one profiled run a replica count (not in the
+    # launch count above: the kernels line counts the sweep); the
+    # profiler slows the host, so the busy ms is also set against the wall
+    # of the same configuration's unprofiled run
+    out["idle"] = {}
+    for replicas in SERVE_REPLICAS:
+        what = f"serve profiled r={replicas} b={SERVE_MAX_BATCH[-1]}"
+        run = serve_async_run(svc, queries, replicas, SERVE_MAX_BATCH[-1],
+                              False, profile=True)
+        check_same(what, run, *direct[False])
+        log_serve(what, run)
+        plain = out["runs"][replicas, SERVE_MAX_BATCH[-1], False].wall_s
+        log(f"[{what}] device busy {run['busy_ms']:.3f} ms against the "
+            f"unprofiled run's {plain * 1e3:.3f} ms: idle share "
+            f"{1 - run['busy_ms'] / (plain * 1e3):.3f}")
+        out["idle"][replicas] = (run["busy_ms"], run["wall_s"], run["idle"],
+                                 plain)
+    # csd: one block store, SERVE_CSD_REPLICAS page caches
+    spec = csd_store["spec"]
+    csd = SearchService(spec, CSDBackend.from_state(spec, {}, DEVICE))
+    nq = SERVE_CSD_QUERIES
+    what = f"serve csd r={SERVE_CSD_REPLICAS} b={BATCH}"
+    t0 = time.perf_counter()
+    with SearchServer(csd, replicas=SERVE_CSD_REPLICAS, max_batch=BATCH,
+                      max_wait_ms=SERVE_WAIT_MS) as srv:
+        res = [f.result() for f in srv.submit_many(queries[:nq], k=10,
+                                                   ef=40)]
+        roll = srv.stats()
+        readers = {id(r.service.backend.reader) for r in srv.pool.replicas}
+    run = {"ids": np.stack([r.ids for r in res]),
+           "dists": np.stack([r.dists for r in res]), "stats": roll,
+           "wall_s": time.perf_counter() - t0}
+    check(np.array_equal(run["ids"], csd_store["ids"][False]),
+          f"{what}: ids != phase 6b's serve_loop ids")
+    check(np.array_equal(run["dists"], direct[False][1][:nq]),
+          f"{what}: dists != the partitioned service's")
+    check(len(readers) == SERVE_CSD_REPLICAS,
+          f"{what}: {len(readers)} StoreReaders for {SERVE_CSD_REPLICAS} "
+          f"replicas")
+    for r in roll.replicas:
+        check(r.get("block_reads", 0) > 0,
+              f"{what}: replica {r['replica']} read no block")
+        check(r["queries"] > 0, f"{what}: replica {r['replica']} idle")
+    log_serve(what, run)
+    log(f"[{what}] per replica (own page cache of {spec.cache_bytes} "
+        f"bytes): " + "; ".join(
+            f"r{r['replica']} {r['queries']} queries, {r['block_reads']} "
+            f"block reads, hit rate {r['cache_hit_rate']:.4f}"
+            for r in roll.replicas))
+    csd.backend.reader.close()
+    out["csd"] = roll
+    serve_obs_run(svc, queries[:4 * 64], tmp)
+    log(f"[serve] phase {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the mutable index (repro_torch.ingest) on the card
+# ---------------------------------------------------------------------------
+
+
+def ingest_plan(n: int):
+    """The ingest phase's pinned script: inserts of INGEST_STEP rows (gids
+    0.. in insert order), each one's every INGEST_DEL-th row deleted once
+    it is sealed (4 inserts later, or after the last insert). Returns
+    (delete lists by the insert after which they run, the survivors)."""
+    steps = n // INGEST_STEP
+    per_seal = INGEST_SEAL // INGEST_STEP
+    dele = {i: [] for i in range(steps)}
+    for j in range(steps):
+        gids = j * INGEST_STEP + np.arange(0, INGEST_STEP, INGEST_DEL)
+        dele[min(j + per_seal, steps - 1)].append(gids)
+    dele = {i: np.concatenate(g) for i, g in dele.items() if g}
+    dead = np.concatenate(list(dele.values()))
+    return dele, np.setdiff1d(np.arange(n), dead)
+
+
+def rebuild_worker(path: str, n: int, device: str) -> float:
+    """Worker process: SearchService.build over the ingest phase's
+    survivors (what its compaction must equal) on `device`, saved to
+    `path`; returns the build's seconds."""
+    from repro_torch.api import SearchService
+
+    data, _ = main_data(N_MAIN, 0)
+    _, alive = ingest_plan(n)
+    t0 = time.perf_counter()
+    svc = SearchService.build(data[alive], partitioned_spec(), device=device)
+    seconds = time.perf_counter() - t0
+    svc.save(path)
+    return seconds
+
+
+def ingest_phase(data, queries, rebuild_path: str) -> dict:
+    """The mutable index on the card, served through SearchServer while it
+    grows: N_INGEST rows in inserts of INGEST_STEP, a seal every
+    INGEST_SEAL rows, the ingest_plan deletes, 256-query batches rerank
+    off and on between inserts, then flush_index and compact_index."""
+    from repro_torch.api import (IndexSpec, MutableSearchService,
+                                 SearchRequest, SearchService)
+    from repro_torch.kernels import traversal as tr
+    from repro_torch.serve import SearchServer
+
+    t_phase = time.perf_counter()
+    dele, alive = ingest_plan(N_INGEST)
+    svc = MutableSearchService(partitioned_spec(), seal_threshold=INGEST_SEAL,
+                               device=DEVICE)
+    seal_s = []
+    seal = svc._seal_locked
+
+    def timed_seal():              # the seals that made a segment
+        n, t0 = len(svc._segments), time.perf_counter()
+        seal()
+        if len(svc._segments) > n:
+            seal_s.append(time.perf_counter() - t0)
+
+    svc._seal_locked = timed_seal
+    tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
+    dead = np.zeros(0, np.int64)
+    served = 0
+
+    def serve(srv, step: int, label: str) -> None:
+        nonlocal served
+        q = queries[(step % (len(queries) // BATCH)) * BATCH:][:BATCH]
+        for rerank in (False, True):
+            for f in srv.submit_many(q, k=10, ef=40, rerank=rerank):
+                ids = f.result().ids
+                check(not np.isin(ids, dead).any(),
+                      f"ingest: a deleted gid surfaced ({label}, "
+                      f"rerank={rerank})")
+                served += 1
+
+    def p50_search() -> float:
+        lat = []
+        for i in range(0, len(queries), BATCH):
+            t0 = time.perf_counter()
+            svc.search(SearchRequest(queries[i:i + BATCH], k=10,
+                                     ef=40)).ids.cpu()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return float(np.percentile(lat, 50))
+
+    insert_s = 0.0
+    with SearchServer(svc, replicas=2, max_batch=BATCH,
+                      max_wait_ms=SERVE_WAIT_MS) as srv:
+        for i in range(N_INGEST // INGEST_STEP):
+            t0 = time.perf_counter()
+            gids = srv.insert(data[i * INGEST_STEP:(i + 1) * INGEST_STEP])
+            insert_s += time.perf_counter() - t0
+            check(np.array_equal(gids, i * INGEST_STEP
+                                 + np.arange(INGEST_STEP)),
+                  f"ingest: insert {i} returned gids {gids[:3]}...")
+            if i in dele:
+                check(srv.delete(dele[i]) == len(dele[i]),
+                      f"ingest: delete after insert {i}")
+                dead = np.concatenate([dead, dele[i]])
+            serve(srv, i, f"after insert {i}")
+        srv.flush_index()
+        segments = svc.num_segments
+        p50_before = p50_search()
+        t0 = time.perf_counter()
+        summary = srv.compact_index()
+        compact_s = time.perf_counter() - t0
+        check(svc.num_segments == 1, f"ingest: {svc.num_segments} segments "
+                                     f"after compaction")
+        serve(srv, 0, "after compaction")
+        p50_after = p50_search()
+    launches, ldg = tr.ASYNC_LAUNCHES, tr.LAUNCHES
+    check(launches > 0, "the ingest path launched no traversal_async.cu")
+    check(ldg == 0, f"the ingest path launched traversal.cu {ldg} times")
+    check(svc.size == len(alive), f"ingest: {svc.size} live rows, "
+                                  f"{len(alive)} expected")
+    rows_s = N_INGEST / insert_s
+    log(f"[ingest] {N_INGEST} rows in {N_INGEST // INGEST_STEP} inserts: "
+        f"{insert_s:.1f}s, {rows_s:.1f} rows/s (the numpy graph builder's "
+        f"insert_point and {len(seal_s)} seals of {INGEST_SEAL} rows, "
+        f"{sum(seal_s):.2f}s: " + ", ".join(f"{s:.2f}" for s in seal_s)
+        + f"); {len(dead)} deleted; {segments} segments before compaction")
+    log(f"[ingest] compaction {compact_s:.1f}s ({summary}); search p50 "
+        f"(rerank off, {BATCH}-query batch) {p50_before:.3f} ms over "
+        f"{segments} segments, {p50_after:.3f} ms after; resident "
+        f"{svc.resident_bytes()} bytes now, peak {svc.peak_resident_bytes}"
+        f" (host memtable and builder tables; no csd caches here)")
+    log(f"[ingest] {served} served requests after every insert and after "
+        f"compaction, rerank off and on: no deleted gid surfaced; "
+        f"traversal launches: traversal_async.cu {launches}, traversal.cu "
+        f"{ldg}")
+    # compaction == a from-scratch build over the survivors (a worker
+    # built it on the card beside phase 4's build)
+    fresh = SearchService.load(rebuild_path, device=DEVICE)
+    exact = SearchService.build(data[alive], IndexSpec(backend="exact"),
+                                device=DEVICE)
+    got_all = []
+    for rerank in (False, True):
+        for i in range(0, len(queries), BATCH):
+            q = queries[i:i + BATCH]
+            got = svc.search(SearchRequest(q, k=10, ef=40, rerank=rerank))
+            want = fresh.search(SearchRequest(q, k=10, ef=40, rerank=rerank))
+            wi = want.ids.cpu().numpy()
+            gi = got.ids.numpy()
+            check(np.array_equal(gi, np.where(wi >= 0,
+                                              alive[np.maximum(wi, 0)], -1)),
+                  f"ingest: compacted ids != rebuild (rerank={rerank}, "
+                  f"batch {i // BATCH})")
+            check(np.array_equal(got.dists.numpy(),
+                                 want.dists.cpu().numpy()),
+                  f"ingest: compacted dists != rebuild (rerank={rerank}, "
+                  f"batch {i // BATCH})")
+            check(not np.isin(gi, dead).any(),
+                  "ingest: a deleted gid surfaced after compaction")
+            if not rerank:
+                got_all.append(gi)
+    gt = np.concatenate([
+        alive[exact.search(SearchRequest(queries[i:i + BATCH],
+                                         k=10)).ids.cpu().numpy()]
+        for i in range(0, len(queries), BATCH)])
+    rec = recall_at(np.concatenate(got_all), gt)
+    log(f"[ingest] after compaction: ids and dists bitwise equal to "
+        f"SearchService.build over the {len(alive)} survivors on the card, "
+        f"rerank off and on; recall@10 {rec:.4f} against the exact backend "
+        f"over the survivors")
+    check(rec >= 0.95, f"ingest: recall@10 {rec:.4f} < 0.95")
+    with tempfile.TemporaryDirectory() as idx:
+        svc.save(idx)
+        cpu = MutableSearchService.load(idx, device="cpu")
+    q0 = queries[:BATCH]
+    for rerank in (False, True):
+        a = svc.search(SearchRequest(q0, k=10, ef=40, rerank=rerank))
+        b = cpu.search(SearchRequest(q0, k=10, ef=40, rerank=rerank))
+        check(torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists),
+              f"ingest: CPU copy != card (rerank={rerank})")
+    log(f"[ingest] CPU copy (v2 save -> load device='cpu') bitwise equal to "
+        f"the card on one {BATCH}-query batch, rerank off and on; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    svc.close()
+    return {"launches": launches, "rows_s": rows_s, "seal_s": seal_s,
+            "compact_s": compact_s, "p50": (p50_before, p50_after),
+            "recall": rec, "resident": (svc.resident_bytes(),
+                                        svc.peak_resident_bytes)}
 
 
 # ---------------------------------------------------------------------------
@@ -2438,10 +2934,11 @@ def kernel_row(name, source, replaces, launches, err, timing, bound_by):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernel,main,quant,csd,scan,lm",
-                    help="comma list of kernel,main,quant,csd,scan,lm (card "
-                         "and build always run; csd needs quant, quant "
-                         "needs main)")
+    ap.add_argument("--phases",
+                    default="kernel,main,quant,csd,serve,ingest,scan,lm",
+                    help="comma list of kernel,main,quant,csd,serve,ingest,"
+                         "scan,lm (card and build always run; serve needs "
+                         "csd, csd needs quant, quant and ingest need main)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2455,9 +2952,11 @@ def main(argv=None) -> int:
         return 2
     t_all = time.perf_counter()
     phases = set(args.phases.split(","))
+    if "serve" in phases:
+        phases.add("csd")
     if "csd" in phases:
         phases.add("quant")
-    if "quant" in phases:
+    if "quant" in phases or "ingest" in phases:
         phases.add("main")
 
     # 1. card
@@ -2482,10 +2981,10 @@ def main(argv=None) -> int:
             log(f"[build] {name}: {line.strip()}")
 
     kern = {}
-    main_out = timing = quant = scan = None
+    main_out = timing = quant = scan = served = ingest = None
     with tempfile.TemporaryDirectory() as tmp, \
             concurrent.futures.ProcessPoolExecutor(
-                max_workers=3,
+                max_workers=4,
                 mp_context=multiprocessing.get_context("spawn")) as pool:
         paths = {dt: str(Path(tmp) / dt) for dt in ("uint8", "int8", "pq")}
         # the workers see sys.path (so repro_torch) through spawn's
@@ -2494,6 +2993,11 @@ def main(argv=None) -> int:
                                    partitioned_spec(dtype=dt, pq_m=PQ_M),
                                    path, N_MAIN, DEVICE)
                    for dt, path in paths.items()} if "quant" in phases else {})
+        # the ingest phase's reference: a build over its survivors
+        rebuild_path = str(Path(tmp) / "ingest-rebuild")
+        if "ingest" in phases:
+            builds["ingest survivors"] = pool.submit(
+                rebuild_worker, rebuild_path, N_INGEST, DEVICE)
         # 3. kernel
         if "kernel" in phases:
             kern = kernel_phase(1_000_000, seed=0)
@@ -2512,6 +3016,9 @@ def main(argv=None) -> int:
                 log(f"[build] {dt} partitioned index: SearchService.build "
                     f"{fut.result():.1f}s in its worker (saved)")
             if builds:
+                # no build competes with a timed batch: the workers exit
+                pool.shutdown(wait=True)
+            if builds:
                 log(f"[build] waited {time.perf_counter() - t0:.1f}s for the "
                     f"quantized builds")
             main_out = main_phase(svc, data, queries)
@@ -2528,8 +3035,15 @@ def main(argv=None) -> int:
                 parts = {"float32": svc}
                 for dt in ("uint8", "int8", "pq"):
                     parts[dt] = SearchService.load(paths[dt], device=DEVICE)
-                csd_phase(tmp, parts, queries)
+                csd_out = csd_phase(tmp, parts, queries)
                 del parts
+            # 6c. serve, through SearchServer
+            if "serve" in phases:
+                served = serve_phase(svc, queries, main_out,
+                                     csd_out["float32"], tmp)
+            # 6d. ingest, the mutable index served while it grows
+            if "ingest" in phases:
+                ingest = ingest_phase(data, queries, rebuild_path)
     # 7. scan
     if "scan" in phases:
         torch.cuda.empty_cache()
@@ -2548,9 +3062,11 @@ def main(argv=None) -> int:
         path = main_out if dt == "float32" else quant and quant[dt]
         t = path and (timing if dt == "float32" else path["timing"])
         sfx = "" if dt == "float32" else f"_{dt}"
+        launches = path["launches"] if path else 0
+        if dt == "float32":   # the serve sweep and the ingest phase too
+            launches += sum(x["launches"] for x in (served, ingest) if x)
         rows.append(kernel_row(f"fused_traversal_async{sfx}",
-                               csrc + "traversal_async.cu", trav,
-                               path["launches"] if path else 0,
+                               csrc + "traversal_async.cu", trav, launches,
                                kern.get(("async", dt)), t, "bytes"))
         # the paths launch traversal.cu no time (check_traversal_launches)
         rows.append(kernel_row(

@@ -3,7 +3,8 @@
 The same request/response API as the reference package over the ported
 engines: exact brute force, monolithic HNSW, the paper's partitioned
 two-stage engine and its out-of-core `csd` form over a block store, on
-float32, scalar-quantized and product-quantized rows.
+float32, scalar-quantized and product-quantized rows, and the mutable
+segmented index (`MutableSearchService`, exported lazily).
 """
 
 from repro_torch.api.backends import (
@@ -46,3 +47,14 @@ __all__ = [
     "available_backends",
     "batched_rerank",
 ]
+
+
+def __getattr__(name):
+    """Lazy export of the mutable service (PEP 562), as the reference's:
+    `repro_torch.ingest` composes the objects defined above, so an eager
+    import here would be a cycle whenever `repro_torch.ingest` is the
+    import entry point."""
+    if name == "MutableSearchService":
+        from repro_torch.ingest.service import MutableSearchService
+        return MutableSearchService
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

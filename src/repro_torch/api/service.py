@@ -116,11 +116,21 @@ class SearchService:
         are encoded here, once, so every backend sees the same codes; pq
         queries stay float32 (asymmetric distance). Emits the reference's
         `search` span and its `api_searches_total` / `api_queries_total`
-        counters."""
+        counters; the span parents on `request.trace` when the calling
+        thread has no open span."""
         if not isinstance(request, SearchRequest):
             request = SearchRequest(queries=request)
-        with TRACER.span("search", backend=self.spec.backend, k=request.k,
-                         ef=request.ef):
+        # nest under this thread's open span when there is one (a replica's
+        # dispatch span); on a cold thread, under the parent the serving
+        # layer stamped on the request
+        if request.trace is not None and TRACER.current_ctx() is None:
+            span = TRACER.span("search", parent=request.trace,
+                               backend=self.spec.backend, k=request.k,
+                               ef=request.ef)
+        else:
+            span = TRACER.span("search", backend=self.spec.backend,
+                               k=request.k, ef=request.ef)
+        with span:
             q = request.queries
             scalar = self.quantizer is not None and self.spec.dtype != "pq"
             if isinstance(q, torch.Tensor) and (self.metric.normalize_queries
@@ -162,7 +172,8 @@ class SearchService:
         """Re-open the latest committed version of a saved index on
         `device` (default: the card): format version 1 or 3. Indexes saved
         before the manifest existed (bare step dirs) load as partitioned
-        with default knobs. Mutable (version 2) indexes are not ported."""
+        with default knobs. A mutable (version 2) index is refused with a
+        pointer to `MutableSearchService.load`."""
         device = resolve_device(device)
         manifest_path = os.path.join(path, MANIFEST_NAME)
         step = latest_step(path)
@@ -179,15 +190,14 @@ class SearchService:
         with open(manifest_path) as f:
             manifest = json.load(f)
         version = manifest.get("format_version")
-        if version == 2:
-            raise NotImplementedError(
-                f"index at {path!r} is a mutable segmented index "
-                f"(format_version=2), not yet ported; see ROADMAP.md")
         if version not in (FORMAT_VERSION, PQ_FORMAT_VERSION):
+            hint = (" (a mutable segmented index — open it with "
+                    "repro_torch.api.MutableSearchService.load)"
+                    if version == 2 else "")
             raise ValueError(
                 f"index at {path!r} has format_version={version}; "
                 f"this build reads versions {FORMAT_VERSION} and "
-                f"{PQ_FORMAT_VERSION}")
+                f"{PQ_FORMAT_VERSION}{hint}")
         spec = IndexSpec.from_json(manifest["spec"])
         if step is None:
             raise FileNotFoundError(

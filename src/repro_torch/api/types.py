@@ -114,9 +114,10 @@ class SearchRequest:
     ef      : beam width (graph backends; the exact backend ignores it)
     rerank  : recompute exact distances over the stage-1 candidate pool
     with_stats : return per-query hop / distance-evaluation counts
-    trace   : kept for parity with the reference (a parent span handed
-              across threads by its serving layer); ignored by the port,
-              whose `search` span nests under the calling thread's
+    trace   : a parent span ctx handed across threads by the serving
+              layer (the batcher stamps its batch span here); the
+              `search` span parents on it when the thread that searches
+              has no open span, else nests under that thread's span
     """
 
     queries: Any

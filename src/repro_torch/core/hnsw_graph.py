@@ -553,8 +553,10 @@ def db_size_bytes(db: DeviceDB) -> dict[str, int]:
 
 
 def device_db(db: DeviceDB, device) -> DeviceDB:
-    """Move a DeviceDB of numpy arrays (single or partition-stacked) onto
-    `device` as tensors. Dtypes are kept: float32 tables stay float32 and
-    every id / pointer / level table stays int32, -1 padded."""
-    return DeviceDB(*(torch.as_tensor(np.array(a, order="C"), device=device)
-                      for a in db))
+    """Move a DeviceDB of numpy arrays or tensors (single or partition-
+    stacked) onto `device` as tensors. Dtypes are kept: float32 tables
+    stay float32 and every id / pointer / level table stays int32, -1
+    padded. A tensor already on `device` is used as it is."""
+    return DeviceDB(*(a.to(device).contiguous() if isinstance(a, torch.Tensor)
+                      else torch.as_tensor(np.array(a, order="C"),
+                                           device=device) for a in db))

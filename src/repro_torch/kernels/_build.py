@@ -19,9 +19,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import threading
 from pathlib import Path
 
-__all__ = ["build_all", "load", "BUILD_LOG", "BUILD_DIR", "SOURCES"]
+__all__ = ["build_all", "count_launch", "load", "BUILD_LOG", "BUILD_DIR",
+           "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/repro_torch (the repo root is three levels above the package)
@@ -36,6 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # name -> nvcc's output (ptxas register / shared-memory report) per build
 BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+# one build or load at a time: replica threads may reach a kernel at once
+_LOAD_LOCK = threading.Lock()
+# the launch counters of every kernels module are bumped under one lock
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -94,9 +101,22 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     the stream are `c_void_p` so ctypes never truncates them to 32 bits."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_all((name,))[name]))
-        for fn, (restype, argtypes) in signatures.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build_all((name,))[name]))
+                for fn, (restype, argtypes) in signatures.items():
+                    getattr(lib, fn).restype = restype
+                    getattr(lib, fn).argtypes = argtypes
+                _LIBS[name] = lib
     return lib
+
+
+def count_launch(module: str, counter: str) -> None:
+    """Add one to the launch counter `counter` (a module attribute, read
+    and reset by callers) of the kernels module named `module`. The
+    read-modify-write holds one lock, so the counts stay exact when
+    replica threads launch at once."""
+    mod = sys.modules[module]
+    with _COUNT_LOCK:
+        setattr(mod, counter, getattr(mod, counter) + 1)

@@ -140,7 +140,6 @@ def flash_attention_tc_cuda(q, k, v, *, causal: bool = True):
     the current stream: out [BH, T, hd] bf16. Raises on operands
     `takes_tensor_cores` refuses, as `_operands` does, and if the launch
     fails."""
-    global TC_LAUNCHES
     bh, t, s, hd, index, stream = _operands(q, k, v)
     if not takes_tensor_cores(q, k, v):
         raise ValueError(f"flash_attention: the tensor-core kernel takes bf16 "
@@ -154,7 +153,7 @@ def flash_attention_tc_cuda(q, k, v, *, causal: bool = True):
         stream)
     raise_on(lib, "repro_flash_attention_tc_error_string", err,
              "flash_attention (tensor cores)")
-    TC_LAUNCHES += 1
+    _build.count_launch(__name__, "TC_LAUNCHES")
     return out
 
 
@@ -162,7 +161,6 @@ def flash_attention_fma_cuda(q, k, v, *, causal: bool = True):
     """Launch `csrc/flash_attention.cu` (FP32 FMAs, any operands
     `_operands` accepts) on the current stream: out [BH, T, hd] in q's
     dtype. Raises if the launch fails."""
-    global FMA_LAUNCHES
     bh, t, s, hd, index, stream = _operands(q, k, v)
     out = torch.empty_like(q)
     vec = int(hd * q.element_size() % 16 == 0
@@ -174,7 +172,7 @@ def flash_attention_fma_cuda(q, k, v, *, causal: bool = True):
         vec, stream)
     raise_on(lib, "repro_flash_attention_error_string", err,
              "flash_attention (FP32 FMA)")
-    FMA_LAUNCHES += 1
+    _build.count_launch(__name__, "FMA_LAUNCHES")
     return out
 
 

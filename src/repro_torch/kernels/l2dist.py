@@ -230,11 +230,10 @@ def l2dist_fma_cuda(queries, xs, xsq=None, *, metric: str = "l2"):
     """Launch `csrc/l2dist.cu` (FP32 FMAs) on the current stream: d [Bq,
     Bx] float32 under `metric` over float32, uint8 or int8 rows. Raises on
     any other device, dtype, shape or layout."""
-    global LAUNCHES
     out = launch_distance_matrix(queries, xs, xsq, metric=metric,
                                  out_scale=None, row_dtypes=ROW_DTYPES,
                                  what="l2dist")
-    LAUNCHES += 1
+    _build.count_launch(__name__, "LAUNCHES")
     return out
 
 
@@ -243,7 +242,6 @@ def l2dist_tc_cuda(queries, xs, xsq=None, *, metric: str = "l2"):
     current stream: d [Bq, Bx] float32 under `metric`. Raises on operands
     `takes_tensor_cores` refuses, as `row_operands` does, and if the
     launch fails."""
-    global TC_LAUNCHES
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     q, _, _, dev = row_operands(queries, xs, xsq, (torch.float32,), "l2dist")
@@ -266,7 +264,7 @@ def l2dist_tc_cuda(queries, xs, xsq=None, *, metric: str = "l2"):
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, "repro_l2dist_tc_error_string", err,
              "l2dist (tensor cores)")
-    TC_LAUNCHES += 1
+    _build.count_launch(__name__, "TC_LAUNCHES")
     return out
 
 

@@ -203,10 +203,9 @@ def l2topk_fma_cuda(queries, xs, xsq=None, *, k: int = 10):
     float32, uint8 or int8 rows: (dists [Bq, k] float32, ids [Bq, k]
     int32). k <= 64; raises on any other device, dtype, shape or
     layout."""
-    global LAUNCHES
     out = launch_fused_topk(queries, xs, xsq, k=k, out_scale=None,
                             row_dtypes=ROW_DTYPES, what="l2topk")
-    LAUNCHES += 1
+    _build.count_launch(__name__, "LAUNCHES")
     return out
 
 
@@ -215,7 +214,6 @@ def l2topk_tc_cuda(queries, xs, xsq=None, *, k: int = 10):
     split merge on the current stream: (dists [Bq, k] float32, ids [Bq, k]
     int32). k <= 64; raises on operands `takes_tensor_cores` refuses, as
     `row_operands` does, and if the launch fails."""
-    global TC_LAUNCHES
     _, _, _, dev = row_operands(queries, xs, xsq, (torch.float32,), "l2topk")
     if not takes_tensor_cores(queries, xs):
         raise ValueError(f"l2topk: the tensor-core kernel takes contiguous "
@@ -240,7 +238,7 @@ def l2topk_tc_cuda(queries, xs, xsq=None, *, k: int = 10):
         out_i.data_ptr(), dev.index or 0, bq, bx, d, k, splits,
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, "repro_l2topk_tc_error_string", err, "l2topk (tensor cores)")
-    TC_LAUNCHES += 1
+    _build.count_launch(__name__, "TC_LAUNCHES")
     return out_d, out_i
 
 

@@ -269,7 +269,6 @@ def pq_adc_v1_cuda(luts, codes, xpad=None):
     """Launch `csrc/qdist.cu`'s ADC matrix kernel on the current stream;
     returns d [Bq, Bx] float32. Raises on any other device, dtype, shape
     or layout."""
-    global ADC_LAUNCHES
     bq, bx, m, kq, vec, dev = _launch_shape(luts, codes, xpad)
     out = torch.empty((bq, bx), dtype=torch.float32, device=dev)
     groups = -(-bq // kq)
@@ -281,7 +280,7 @@ def pq_adc_v1_cuda(luts, codes, xpad=None):
                            out.data_ptr(), dev.index or 0, bq, bx, m, vec, kq,
                            grid_x, stream)
     _raise_on(lib, err, "pq_adc")
-    ADC_LAUNCHES += 1
+    _build.count_launch(__name__, "ADC_LAUNCHES")
     return out
 
 
@@ -322,7 +321,6 @@ def pq_adc_smem_cuda(luts, codes, xpad=None):
     """Launch `csrc/pq_adc_smem.cu` on the current stream; returns d [Bq,
     Bx] float32. Raises on operands `pq_adc_route` refuses, as
     `pq_adc_v1_cuda` does, and if the launch fails."""
-    global ADC_SMEM_LAUNCHES
     bq, bx, m, _, _, dev = _launch_shape(luts, codes, xpad)
     if not pq_adc_route(luts, codes, xpad):
         raise ValueError(f"pq_adc: the shared-memory kernel takes M in "
@@ -342,7 +340,7 @@ def pq_adc_smem_cuda(luts, codes, xpad=None):
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, "repro_pq_adc_smem_error_string", err,
              "pq_adc (shared memory)")
-    ADC_SMEM_LAUNCHES += 1
+    _build.count_launch(__name__, "ADC_SMEM_LAUNCHES")
     return out
 
 
@@ -359,7 +357,6 @@ def pq_topk_v1_cuda(luts, codes, xpad=None, *, k: int = 10):
     """Launch `csrc/qdist.cu`'s fused ADC top-k on the current stream;
     returns (dists [Bq, k] float32, ids [Bq, k] int32). k <= 64; raises on
     any other device, dtype, shape or layout."""
-    global TOPK_LAUNCHES
     bq, bx, m, kq, vec, dev = _launch_shape(luts, codes, xpad)
     if not 0 < k <= MAX_K:
         raise ValueError(f"k={k}; the kernel takes 1..{MAX_K}")
@@ -379,7 +376,7 @@ def pq_topk_v1_cuda(luts, codes, xpad=None, *, k: int = 10):
                             dev.index or 0, bq, bx, m, vec, kq, k, splits,
                             stream)
     _raise_on(lib, err, "pq_topk")
-    TOPK_LAUNCHES += 1
+    _build.count_launch(__name__, "TOPK_LAUNCHES")
     return out_d, out_i
 
 
@@ -433,7 +430,6 @@ def pq_topk_smem_cuda(luts, codes, xpad=None, *, k: int = 10):
     stream; returns (dists [Bq, k] float32, ids [Bq, k] int32). Raises on
     operands `pq_topk_route` refuses, as `pq_topk_v1_cuda` does, and if
     the launch fails."""
-    global TOPK_SMEM_LAUNCHES
     bq, bx, m, _, _, dev = _launch_shape(luts, codes, xpad)
     if not pq_topk_route(luts, codes, xpad, k):
         raise ValueError(f"pq_topk: the shared-memory kernel takes M in "
@@ -453,7 +449,7 @@ def pq_topk_smem_cuda(luts, codes, xpad=None, *, k: int = 10):
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, "repro_pq_topk_smem_error_string", err,
              "pq_topk (shared memory)")
-    TOPK_SMEM_LAUNCHES += 1
+    _build.count_launch(__name__, "TOPK_SMEM_LAUNCHES")
     return out_d, out_i
 
 
@@ -492,11 +488,10 @@ def l2dist_q_fma_cuda(queries, xs, xsq=None, *, out_scale: float = 1.0):
     """Launch `csrc/l2dist.cu` (FP32 FMAs) over uint8 / int8 code rows on
     the current stream; returns d [Bq, Bx] float32. Raises on any other
     device, dtype, shape or layout."""
-    global L2DIST_Q_LAUNCHES
     out = launch_distance_matrix(queries, xs, xsq, metric="l2",
                                  out_scale=out_scale,
                                  row_dtypes=_CODE_DTYPES, what="l2dist_q")
-    L2DIST_Q_LAUNCHES += 1
+    _build.count_launch(__name__, "L2DIST_Q_LAUNCHES")
     return out
 
 
@@ -505,7 +500,6 @@ def l2dist_q_tc_cuda(queries, xs, xsq=None, *, out_scale: float = 1.0):
     returns d [Bq, Bx] float32. Raises on operands
     `takes_tensor_cores_dist` refuses, as `row_operands` does, and if the
     launch fails."""
-    global L2DIST_Q_TC_LAUNCHES
     _, _, _, dev = row_operands(queries, xs, xsq, _CODE_DTYPES, "l2dist_q")
     if not takes_tensor_cores_dist(queries, xs) or \
             not queries.is_contiguous():
@@ -525,7 +519,7 @@ def l2dist_q_tc_cuda(queries, xs, xsq=None, *, out_scale: float = 1.0):
         as_f32(out_scale), torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, "repro_l2dist_q_tc_error_string", err,
              "l2dist_q (tensor cores)")
-    L2DIST_Q_TC_LAUNCHES += 1
+    _build.count_launch(__name__, "L2DIST_Q_TC_LAUNCHES")
     return out
 
 
@@ -544,10 +538,9 @@ def l2topk_q_fma_cuda(queries, xs, xsq=None, *, k: int = 10,
     the current stream; returns (dists [Bq, k] float32, ids [Bq, k]
     int32). k <= 64; raises on any other device, dtype, shape or
     layout."""
-    global L2TOPK_Q_LAUNCHES
     out = launch_fused_topk(queries, xs, xsq, k=k, out_scale=out_scale,
                             row_dtypes=_CODE_DTYPES, what="l2topk_q")
-    L2TOPK_Q_LAUNCHES += 1
+    _build.count_launch(__name__, "L2TOPK_Q_LAUNCHES")
     return out
 
 
@@ -557,7 +550,6 @@ def l2topk_q_tc_cuda(queries, xs, xsq=None, *, k: int = 10,
     the current stream; returns (dists [Bq, k] float32, ids [Bq, k]
     int32). k <= 64; raises on operands `takes_tensor_cores` refuses, as
     `row_operands` does, and if the launch fails."""
-    global L2TOPK_Q_TC_LAUNCHES
     _, _, _, dev = row_operands(queries, xs, xsq, _CODE_DTYPES, "l2topk_q")
     if not takes_tensor_cores(queries, xs) or not queries.is_contiguous():
         raise ValueError(f"l2topk_q: the tensor-core kernel takes contiguous "
@@ -584,7 +576,7 @@ def l2topk_q_tc_cuda(queries, xs, xsq=None, *, k: int = 10,
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, "repro_l2topk_q_tc_error_string", err,
              "l2topk_q (tensor cores)")
-    L2TOPK_Q_TC_LAUNCHES += 1
+    _build.count_launch(__name__, "L2TOPK_Q_TC_LAUNCHES")
     return out_d, out_i
 
 

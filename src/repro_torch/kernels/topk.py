@@ -122,7 +122,6 @@ def topk_stream_cuda(x, k: int):
     float32, ids [B, k] int32). Floating x is cast to float32 as the
     reference's kernel does; 1 <= k <= 64; raises on any other device,
     dtype, shape or layout."""
-    global LAUNCHES
     x = _operand(x, k)
     (b, n), dev = x.shape, x.device
     out_d, out_i = _outputs(x, k)
@@ -131,7 +130,7 @@ def topk_stream_cuda(x, k: int):
     err = lib.repro_select_k(x.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
                              dev.index or 0, b, n, k, warps_per_row(n), stream)
     raise_on(lib, "repro_select_k_error_string", err, "topk")
-    LAUNCHES += 1
+    _build.count_launch(__name__, "LAUNCHES")
     return out_d, out_i
 
 
@@ -139,7 +138,6 @@ def topk_short_cuda(x, k: int):
     """Launch `csrc/select_k_short.cu` on the current stream: (values
     [B, k] float32, ids [B, k] int32). Raises as `topk_stream_cuda` does,
     and on rows that `takes_short_rows` refuses."""
-    global SHORT_LAUNCHES
     x = _operand(x, k)
     (b, n), dev = x.shape, x.device
     if not takes_short_rows(n, k):
@@ -152,7 +150,7 @@ def topk_short_cuda(x, k: int):
                                    out_i.data_ptr(), dev.index or 0, b, n, k,
                                    stream)
     raise_on(lib, "repro_select_k_short_error_string", err, "topk (short rows)")
-    SHORT_LAUNCHES += 1
+    _build.count_launch(__name__, "SHORT_LAUNCHES")
     return out_d, out_i
 
 

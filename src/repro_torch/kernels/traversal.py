@@ -356,7 +356,6 @@ def fused_traversal_ldg_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
     Takes float32, uint8 or int8 rows with D_pad % 128 == 0, M0_pad <= 128,
     C <= 256 and EF <= C; raises on any other device, dtype, shape or
     layout."""
-    global LAUNCHES
     dev, (P, N, D, M0, B, L, C, EF) = _operands(
         _LDG_ENTRY, vectors, sqnorms, l0_nbrs, queries, qsq, cand_d, cand_i,
         fin_d, fin_i, visited, hops, calcs, fused_hops=fused_hops,
@@ -375,7 +374,7 @@ def fused_traversal_ldg_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
         dev.index or 0, L, B, N, D, M0, C, EF, (N + 31) // 32, fused_hops,
         max_hops, METRICS[metric], torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, "repro_cuda_error_string", err, "fused traversal")
-    LAUNCHES += 1
+    _build.count_launch(__name__, "LAUNCHES")
     return cand_d, cand_i, fin_d, fin_i, visited, hops, calcs
 
 
@@ -387,7 +386,6 @@ def fused_traversal_async_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
     counted in `ASYNC_LAUNCHES`, with the bitmap where `traversal_route`
     places it. Raises on shapes the route gives to `traversal.cu`, on any
     other device, dtype, shape or layout, and if the launch fails."""
-    global ASYNC_LAUNCHES
     dev, (P, N, D, M0, B, L, C, EF) = _operands(
         _ASYNC_ENTRY, vectors, sqnorms, l0_nbrs, queries, qsq, cand_d,
         cand_i, fin_d, fin_i, visited, hops, calcs, fused_hops=fused_hops,
@@ -410,7 +408,7 @@ def fused_traversal_async_cuda(vectors, sqnorms, l0_nbrs, queries, qsq,
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(lib, "repro_traversal_async_error_string", err,
               "fused traversal (async)")
-    ASYNC_LAUNCHES += 1
+    _build.count_launch(__name__, "ASYNC_LAUNCHES")
     return cand_d, cand_i, fin_d, fin_i, visited, hops, calcs
 
 
