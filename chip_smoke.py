@@ -13,10 +13,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                Then three worker processes start building the quantized
                indexes of phase 6 (uint8, int8 and pq partitioned, each
                through SearchService.build on the card, then saved), while
-               phases 3 and 4's build run, and a fourth builds the index
-               phase 6d's compaction must equal; phase 4 waits for them
-               (and stops the workers) before it serves, so no build
-               competes with a timed batch.
+               phases 3 and 4's build run; a fourth builds the index
+               phase 6d's compaction must equal, and then the four shards
+               of phase 6e's cluster and the single index its
+               build_cluster check must equal (six workers in all); phase
+               4 waits for them (and stops the workers) before it serves,
+               so no build competes with a timed batch.
   3. kernel  — every kernel against its plain PyTorch version on the card
                at SIFT1M's table size, 1,000,000 rows: both layer-0
                traversal kernels (traversal_async.cu, through the
@@ -133,10 +135,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                seconds, and the idle shares.
   6d. ingest — the mutable index (repro_torch.ingest) on the card:
                MutableSearchService(partitioned, P=4, fused_hops=4, M=16,
-               ef_construction=100, keep_vectors, seal_threshold=4,096)
+               ef_construction=100, keep_vectors, seal_threshold=2,048)
                behind a 2-replica SearchServer; the first N_INGEST =
-               16,384 of phase 4's vectors streamed in 16 inserts of
-               1,024 through SearchServer.insert, every 10th row of each
+               8,192 of phase 4's vectors streamed in 16 inserts of 512
+               through SearchServer.insert, every 10th row of each
                insert deleted once it is sealed (10 %), a 256-query batch
                served rerank off and on after every insert; then
                flush_index and compact_index. Checks: no deleted gid in
@@ -150,6 +152,38 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                traversal_async.cu launches > 0 and traversal.cu == 0.
                Prints insert rows/s, seal and compaction seconds, search
                p50 before and after compaction, and resident bytes.
+  6e. cluster — the sharded cluster (repro_torch.cluster) and the
+               distributed backend over phase 4's rows. Phase 4's own
+               answers and serve_loops run first. (a) CLUSTER_SHARDS = 4
+               shards of one partition each, cut from phase 4's saved
+               state (partition i, ids made shard-local; by the seed
+               schedule a shard build over those rows gives the same
+               graph), each loaded on the card with CLUSTER_REPLICAS = 2
+               replicas (`_clone_service`: on one card they share it)
+               behind a ClusterRouter: `serve_loop` over all 2,048
+               queries, rerank off and on, ids and dists bitwise equal to
+               phase 4's service; QPS and p50 beside phase 4's direct
+               serve_loop run in the same phase; one profiled loop each
+               for the device's idle share and the host side thread by
+               thread; then every batch submitted at once from 4 threads
+               with replica 0 of every shard killed once the first is in
+               flight: every result unchanged, failovers > 0, no shard
+               query lost or duplicated, the health monitor marking the
+               dead replicas down and, revived, up. build_cluster itself
+               on the card at CLUSTER_SMALL = 4,096 rows, 2 shards x 2
+               replicas (the seed schedule): ids, dists, hops and
+               dist_calcs bitwise equal to a single P=2 index over the
+               same rows (a worker's build), rerank off and on. (b) phase
+               4's saved state as a `distributed` index (`from_state`, no
+               build) on the default mesh (every card over `model`) and a
+               (2, 2) ("data", "model") mesh of cuda:0 slots: ids, dists
+               and dist_calcs bitwise equal to phase 4's service on every
+               batch, rerank off and on, a doubled batch's halves
+               identical, QPS and p50 printed, the (2, 2) mesh's loop
+               profiled. The launch counters are set to 0 just before the
+               router's serve_loops and each mesh's, and read just after:
+               traversal_async.cu > 0 and traversal.cu == 0 in each of
+               the three, and traversal.cu == 0 over the phase.
 
   7. scan    — the exact-scan kernels through the public `kernels.ops` API,
                SIFT1M's size: 1,000,000 integer-valued 128-d float32 rows
@@ -268,7 +302,10 @@ SERVE_REPLICAS, SERVE_MAX_BATCH, SERVE_WAIT_MS = (1, 2, 4), (64, 256), 2.0
 SERVE_CSD_REPLICAS, SERVE_CSD_QUERIES = 4, 1024
 # the ingest phase: rows streamed in inserts of INGEST_STEP, the seal
 # threshold, every INGEST_DEL-th row of each insert deleted once sealed
-N_INGEST, INGEST_STEP, INGEST_SEAL, INGEST_DEL = 16384, 1024, 4096, 10
+N_INGEST, INGEST_STEP, INGEST_SEAL, INGEST_DEL = 8192, 512, 2048, 10
+# the cluster phase: shards (one partition each, so phase 4's index),
+# replicas a shard, and build_cluster's own check at (rows, shards)
+CLUSTER_SHARDS, CLUSTER_REPLICAS, CLUSTER_SMALL = 4, 2, (4096, 2)
 # the kernel phase's second synthetic graph: 65,536 rows, a 2,048-word
 # visited bitmap a lane, the widest traversal_async.cu keeps in shared memory
 N_SHARED = 65536
@@ -372,7 +409,8 @@ def partitioned_spec(**kw):
     from repro_torch.api import IndexSpec
     from repro_torch.core.hnsw_graph import HNSWConfig
 
-    return IndexSpec(backend="partitioned", num_partitions=P_MAIN,
+    kw = {"num_partitions": P_MAIN, **kw}
+    return IndexSpec(backend="partitioned",
                      hnsw=HNSWConfig(M=HNSW_M, ef_construction=HNSW_EFC),
                      keep_vectors=True, fused_hops=4, **kw)
 
@@ -764,8 +802,8 @@ def answer(svc, q, h=None, rerank=False, stats=False):
 
     from repro_torch.api import SearchRequest
 
-    be = svc.backend
-    old = be.spec
+    be = svc.backend                   # None for a cluster router
+    old = be and be.spec
     if h is not None:
         be.spec = dataclasses.replace(old, fused_hops=h)
     try:
@@ -775,7 +813,8 @@ def answer(svc, q, h=None, rerank=False, stats=False):
                for t in (r.ids, r.dists, r.stats.hops, r.stats.dist_calcs)]
         return (got, r.stats) if stats else got
     finally:
-        be.spec = old
+        if be is not None:
+            be.spec = old
 
 
 def serve_paths(svc, queries, gt, what: str, gate: dict) -> dict:
@@ -1888,6 +1927,432 @@ def ingest_phase(data, queries, rebuild_path: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6e: the sharded cluster and the distributed backend
+# ---------------------------------------------------------------------------
+
+
+def cluster_spec():
+    """The cluster's base spec: phase 4's with P_MAIN / CLUSTER_SHARDS
+    partitions a shard, so CLUSTER_SHARDS shards are phase 4's index."""
+    return partitioned_spec(num_partitions=P_MAIN // CLUSTER_SHARDS)
+
+
+def small_single_worker(path: str, device: str) -> float:
+    """Worker process: the single index build_cluster's check at
+    CLUSTER_SMALL must equal (P = its shard count over its rows)."""
+    from repro_torch.api import SearchService
+
+    data, _ = main_data(N_MAIN, 0)
+    n, shards = CLUSTER_SMALL
+    t0 = time.perf_counter()
+    svc = SearchService.build(data[:n], partitioned_spec(
+        num_partitions=shards), device=device)
+    seconds = time.perf_counter() - t0
+    svc.save(path)
+    return seconds
+
+
+def same_answers(got, want) -> bool:
+    """`answer`s equal: ids, dists, and hops / dist_calcs where both count
+    them; ids by value (a router's are int64 global ids)."""
+    return all(x is None or y is None or np.array_equal(x.numpy(), y.numpy())
+               for x, y in zip(got, want))
+
+
+def loop_stats(svc, queries, rerank: bool, what: str) -> dict:
+    """serve_loop after one untimed batch; returns its ids and stats."""
+    from repro_torch.api import SearchRequest
+    from repro_torch.launch.serve import serve_loop
+
+    svc.search(SearchRequest(queries[:BATCH], k=10, ef=40,
+                             rerank=rerank)).ids.cpu()
+    ids, st = serve_loop(svc, queries, BATCH, 10, 40, rerank=rerank,
+                         log=lambda m: log(f"[{what}] rerank={rerank} {m}"))
+    st["ids"] = ids
+    return st
+
+
+def counted(fn, what: str, seen: dict):
+    """fn() with the traversal launch counters set to 0 just before and
+    read just after: traversal_async.cu must have launched and
+    traversal.cu not. `seen["ldg"]` adds up traversal.cu's launches since
+    the previous reset, so the phase's total stays checked. Returns (fn's
+    result, traversal_async.cu's launches)."""
+    from repro_torch.kernels import traversal as tr
+
+    seen["ldg"] += tr.LAUNCHES
+    tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
+    out = fn()
+    launches, ldg = tr.ASYNC_LAUNCHES, tr.LAUNCHES
+    log(f"[cluster] {what}: traversal_async.cu {launches} launches, "
+        f"traversal.cu {ldg}")
+    check(launches > 0, f"{what} launched no traversal_async.cu")
+    check(ldg == 0, f"{what} launched traversal.cu {ldg} times")
+    return out, launches
+
+
+def saved_leaves(svc, tmp: str) -> dict:
+    """Phase 4's index saved and read back as {leaf path: array}."""
+    from repro_torch.api import read_step_leaves
+    from repro_torch.checkpoint import latest_step
+
+    path = str(Path(tmp) / "main-index")
+    svc.save(path)
+    return read_step_leaves(path, latest_step(path))
+
+
+def shard_leaves(leaves: dict, i: int, lo: int, hi: int) -> dict:
+    """Shard i's state cut from phase 4's: its contiguous block of
+    partitions from every db leaf, global ids made shard-local, and rows
+    [lo, hi) of the raw vectors. By the seed schedule a shard built over
+    those rows holds the same graphs (build_cluster's check and the CPU
+    tests hold that)."""
+    q = P_MAIN // CLUSTER_SHARDS
+    out = {"meta/num_partitions": np.int32(q), "meta/dim": leaves["meta/dim"],
+           "vectors/raw": np.asarray(leaves["vectors/raw"])[lo:hi]}
+    for k, v in leaves.items():
+        if k.startswith("db/"):
+            out[k] = np.asarray(v)[i * q:(i + 1) * q]
+    g = out["db/gids"]
+    check(np.array_equal(np.sort(g[g >= 0]), np.arange(lo, hi)),
+          f"cluster: phase 4's partitions {i * q}..{(i + 1) * q - 1} do not "
+          f"hold rows {lo}..{hi - 1}")
+    out["db/gids"] = np.where(g >= 0, g - lo, g).astype(g.dtype)
+    return out
+
+
+def cluster_router(leaves: dict, tmp: str):
+    """Phase 6e's router: CLUSTER_SHARDS shards cut from phase 4's saved
+    state and loaded on the card, with CLUSTER_REPLICAS replicas through
+    serve's `_clone_service` (on one card they share it), behind a
+    ClusterRouter publishing cluster.json."""
+    from repro_torch.api import SearchService
+    from repro_torch.api.backends import PartitionedBackend
+    from repro_torch.cluster import (ClusterRouter, ShardClient, ShardWorker,
+                                     shard_bounds, shard_spec)
+    from repro_torch.serve.dispatch import _clone_service
+
+    bounds = shard_bounds(N_MAIN, CLUSTER_SHARDS)
+    clients = []
+    for i in range(CLUSTER_SHARDS):
+        name = f"shard-{i:03d}"
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        spec = shard_spec(cluster_spec(), i)
+        primary = SearchService(spec, PartitionedBackend.from_state(
+            spec, shard_leaves(leaves, i, lo, hi), DEVICE))
+        gids = np.arange(lo, hi)
+        workers = [ShardWorker(name, primary, gids)]
+        for r in range(1, CLUSTER_REPLICAS):
+            svc, owns = _clone_service(primary, r)
+            workers.append(ShardWorker(name, svc, gids, rid=r,
+                                       owns_backend=owns))
+        clients.append(ShardClient(name, workers))
+    return ClusterRouter(cluster_spec(), clients,
+                         path=str(Path(tmp) / "cluster"), device=DEVICE)
+
+
+# CUDA runtime calls by kind, for the host side of a profiled loop
+HOST_KINDS = (("sync", ("Synchronize",)), ("copy", ("cudaMemcpy",)),
+              ("alloc", ("cudaMalloc", "cudaFree", "cudaHostAlloc")),
+              ("event", ("cudaEvent", "cudaStreamWaitEvent")),
+              ("launch", ("LaunchKernel",)))
+
+
+def host_split(trace: dict) -> list:
+    """The host side of a profiled run from its chrome trace, thread by
+    thread (the trace's id; the profiler names CUDA runtime calls' threads
+    by an id of its own, not the OS's): its span (first to last profiled
+    call), ms inside profiled calls, of which ms in each HOST_KINDS kind
+    of CUDA runtime call, its kernel launches, and the rest of the span
+    ("outside": Python, torch's dispatch, waits for the interpreter lock
+    and idle waits for work, which the profiler cannot tell apart). The
+    profiler records torch ops only on the thread that started it, and
+    CUDA runtime calls on every thread. Threads by busiest first."""
+    by = {}
+    for e in trace.get("traceEvents", []):
+        if e.get("ph") == "X" and e.get("cat") in (
+                "cpu_op", "cuda_runtime", "cuda_driver"):
+            by.setdefault(int(e["tid"]), []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                 e.get("name", "")))
+    out = []
+    for tid, evs in by.items():
+        evs.sort()
+        inside, end = 0.0, None
+        for t0, t1, _ in evs:
+            if end is None or t0 > end:
+                inside += t1 - t0
+                end = t1
+            elif t1 > end:
+                inside += t1 - end
+                end = t1
+        span = max(t1 for _, t1, _ in evs) - evs[0][0]
+        row = {"thread": tid, "span": span / 1e3, "inside": inside / 1e3,
+               "outside": (span - inside) / 1e3,
+               "launches": sum("LaunchKernel" in n for _, _, n in evs)}
+        for kind, keys in HOST_KINDS:
+            row[kind] = sum(t1 - t0 for t0, t1, n in evs
+                            if any(k in n for k in keys)) / 1e3
+        out.append(row)
+    return sorted(out, key=lambda r: -r["inside"])
+
+
+def thread_clocks() -> dict:
+    """{OS thread id: ms on a CPU (user + system, /proc's clock ticks)} of
+    this process's live threads. A thread waiting for the interpreter
+    lock, an event or a future is asleep, and gathers none."""
+    import os
+
+    tick = 1e3 / os.sysconf("SC_CLK_TCK")
+    out = {}
+    for d in Path("/proc/self/task").iterdir():
+        try:
+            f = (d / "stat").read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        out[int(d.name)] = (int(f[11]) + int(f[12])) * tick
+    return out
+
+
+def profiled_loop(svc, queries, what: str) -> dict:
+    """One rerank-off serve_loop under torch.profiler: device busy ms,
+    wall ms, idle share; the host side (logged): the process's CPU ms
+    over all its threads (those that ended in the loop too) and its
+    context switches, each live thread's CPU ms, and the trace's
+    per-thread split of the profiled calls (`host_split`)."""
+    import resource
+
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch.launch.serve import serve_loop
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        # read before the profiler stops: its trace processing runs on
+        # this thread
+        c0, cpu0 = thread_clocks(), time.process_time()
+        sw0 = resource.getrusage(resource.RUSAGE_SELF)
+        t0 = time.perf_counter()
+        serve_loop(svc, queries, BATCH, 10, 40, log=lambda m: None)
+        wall = (time.perf_counter() - t0) * 1e3
+        cpu, c1 = (time.process_time() - cpu0) * 1e3, thread_clocks()
+        sw1 = resource.getrusage(resource.RUSAGE_SELF)
+    switches = (sw1.ru_nvcsw - sw0.ru_nvcsw, sw1.ru_nivcsw - sw0.ru_nivcsw)
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    busy = busy_union_ms(prof.events())
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(str(Path(d) / "trace.json"))
+        trace = json.loads((Path(d) / "trace.json").read_text())
+    threads = host_split(trace)
+    log(f"[cluster] {what}, profiled serve_loop, rerank off "
+        f"(torch.profiler): device busy {busy:.3f} ms of {wall:.3f} (idle "
+        f"share {1 - busy / wall:.3f}); process CPU {cpu:.3f} ms over all "
+        f"threads ({cpu / wall:.3f} cores); context switches "
+        f"{switches[0]} voluntary, {switches[1]} involuntary")
+    clocks = sorted(((tid, names.get(tid, "(not Python's)"),
+                      run - c0.get(tid, 0)) for tid, run in c1.items()),
+                    key=lambda x: -x[2])
+    for tid, name, run in clocks[:12]:
+        if run > 0:
+            log(f"[cluster] {what} thread {tid} {name}: on a CPU "
+                f"{run:.3f} ms")
+    for r in threads[:12]:
+        log(f"[cluster] {what} traced thread {r['thread']}: "
+            f"span {r['span']:.3f} ms, inside profiled calls "
+            f"{r['inside']:.3f} (sync {r['sync']:.3f}, copy {r['copy']:.3f}, "
+            f"alloc {r['alloc']:.3f}, event {r['event']:.3f}, launch "
+            f"{r['launch']:.3f} for {r['launches']} launches), outside "
+            f"{r['outside']:.3f}")
+    return {"busy": busy, "wall": wall, "idle": 1 - busy / wall,
+            "cpu": cpu, "switches": switches, "clocks": clocks,
+            "threads": threads}
+
+
+def cluster_failover(router, queries, direct) -> int:
+    """Every batch submitted at once from CLUSTER_SHARDS threads, one
+    replica of every shard killed once the first batch is in flight:
+    every result equal to the direct batches. Then the health monitor
+    marks the dead replicas down and, revived, up. Returns the
+    failovers."""
+    from repro_torch.api import SearchRequest
+    from repro_torch.cluster import HealthMonitor
+
+    before = sum(c.failovers for c in router.shards)
+    served = sum(r.queries for c in router.shards for r in c.replicas)
+    with concurrent.futures.ThreadPoolExecutor(CLUSTER_SHARDS) as ex:
+        futs = [ex.submit(router.search, SearchRequest(
+            queries[i:i + BATCH], k=10, ef=40))
+            for i in range(0, len(queries), BATCH)]
+        for c in router.shards:
+            c.replicas[0].kill()
+        got = [f.result() for f in futs]
+    ids = np.concatenate([r.ids.numpy() for r in got])
+    dists = np.concatenate([r.dists.numpy() for r in got])
+    check(np.array_equal(ids, direct[0]) and np.array_equal(dists, direct[1]),
+          "cluster: results changed when one replica of each shard died")
+    failovers = sum(c.failovers for c in router.shards) - before
+    now = sum(r.queries for c in router.shards for r in c.replicas)
+    check(now - served == CLUSTER_SHARDS * len(queries),
+          f"cluster: {now - served} shard queries served for "
+          f"{CLUSTER_SHARDS} x {len(queries)} (lost or duplicated)")
+    check(failovers > 0, "cluster: no failover with a replica of every "
+                         "shard dead")
+    mon = HealthMonitor(router, interval_s=60.0, timeout_s=600.0)
+    down = mon.probe_now()
+    check(all(f == [False] + [True] * (CLUSTER_REPLICAS - 1)
+              for f in down.values()), f"health after the kill: {down}")
+    for c in router.shards:
+        c.replicas[0].revive()
+    up = mon.probe_now()
+    check(all(all(f) for f in up.values()), f"health after revival: {up}")
+    log(f"[cluster] {len(got)} batches in flight, replica 0 of every shard "
+        f"killed: ids and dists unchanged, {failovers} failovers, "
+        f"{now - served} shard queries (none lost or duplicated); the "
+        f"health monitor marked the {CLUSTER_SHARDS} dead replicas down "
+        f"and, revived, up")
+    return failovers
+
+
+def small_cluster_check(data, queries, path: str) -> None:
+    """build_cluster itself on the card at CLUSTER_SMALL (rows, shards), 2
+    replicas: bitwise the worker-built single index over the same rows
+    (P = shards), rerank off and on, on one batch."""
+    from repro_torch.api import SearchService
+    from repro_torch.cluster import build_cluster
+
+    n, shards = CLUSTER_SMALL
+    t0 = time.perf_counter()
+    router = build_cluster(data[:n], partitioned_spec(num_partitions=1),
+                           shards, replicas=2, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    single = SearchService.load(path, device=DEVICE)
+    try:
+        q0 = queries[:BATCH]
+        for rerank in (False, True):
+            check(same_answers(answer(router, q0, rerank=rerank),
+                               answer(single, q0, rerank=rerank)),
+                  f"cluster: build_cluster at {n} rows != a single index "
+                  f"(rerank={rerank})")
+    finally:
+        router.close()
+    log(f"[cluster] build_cluster({n} rows, {shards} shards x 2 replicas) on "
+        f"the card in {seconds:.1f}s: ids, dists, hops and dist_calcs "
+        f"bitwise equal to SearchService.build(P={shards}) over the same "
+        f"rows on one {BATCH}-query batch, rerank off and on")
+
+
+def distributed_check(svc, queries, leaves: dict, seen: dict) -> dict:
+    """Phase 4's saved state as a distributed index (`from_state`, no new
+    build) on the default mesh (every card over `model`) and on a (2, 2)
+    ("data", "model") mesh of cuda:0 slots: every batch's ids, dists and
+    dist_calcs bitwise equal to phase 4's service, rerank off and on; the
+    halves of a doubled batch identical. Phase 4's answers are taken
+    first; each mesh's serve_loops run in a counted window of their own.
+    Returns each mesh's loop stats and launches, and the (2, 2) mesh's
+    profiled loop."""
+    import dataclasses
+
+    from repro_torch.api import SearchService
+    from repro_torch.api.backends import DistributedBackend
+    from repro_torch.launch.mesh import make_mesh
+
+    spec = dataclasses.replace(svc.spec, backend="distributed")
+    batches = [queries[i:i + BATCH] for i in range(0, len(queries), BATCH)]
+    want = {r: [answer(svc, q, rerank=r) for q in batches]
+            for r in (False, True)}
+    out = {}
+    for what, mesh in (("default", None), ("2x2", make_mesh(
+            (2, 2), ("data", "model"), devices=f"{DEVICE}:0"))):
+        dist = SearchService(spec, DistributedBackend.from_state(
+            spec, leaves, DEVICE, mesh=mesh))
+        label = f"distributed {what} mesh {dist.backend.mesh.shape}"
+        runs, launches = counted(
+            lambda: {r: loop_stats(dist, queries, r, f"cluster {label}")
+                     for r in (False, True)},
+            f"{label} serve_loops", seen)
+        for rerank in (False, True):
+            for i, q in enumerate(batches):
+                check(same_answers(answer(dist, q, rerank=rerank),
+                                   want[rerank][i]),
+                      f"{label}: != phase 4's service (rerank={rerank}, "
+                      f"batch {i})")
+            a = answer(dist, np.concatenate([batches[0]] * 2),
+                       rerank=rerank)
+            check(all(x is None or torch.equal(x[:BATCH], x[BATCH:])
+                      for x in a),
+                  f"{label}: the doubled batch's halves differ "
+                  f"(rerank={rerank})")
+        out[what] = {"runs": runs, "launches": launches}
+        if what == "2x2":
+            out[what]["profile"] = profiled_loop(dist, queries, label)
+        log(f"[cluster] {label}: ids, dists and dist_calcs bitwise equal to "
+            f"phase 4's service on all {len(queries)} queries, rerank off "
+            f"and on; a doubled batch's halves identical")
+    return out
+
+
+def cluster_phase(svc, data, queries, small_path, tmp: str) -> dict:
+    """(a) CLUSTER_SHARDS shards cut from phase 4's saved state x
+    CLUSTER_REPLICAS replicas behind a ClusterRouter: serve_loop ids and
+    dists bitwise equal to phase 4's service, rerank off and on; failover
+    under load; the device idle share and the host split; build_cluster
+    itself at CLUSTER_SMALL. (b) the distributed backend on two meshes.
+    Phase 4's own answers and loops run first; the router's and each
+    mesh's serve_loops run in counted windows of their own."""
+    from repro_torch.kernels import traversal as tr
+
+    t_phase = time.perf_counter()
+    direct = {r: direct_results(svc, queries, r) for r in (False, True)}
+    base = {r: loop_stats(svc, queries, r, "cluster phase 4 direct")
+            for r in (False, True)}
+    prof_d = profiled_loop(svc, queries, "phase 4's direct service")
+    leaves = saved_leaves(svc, tmp)
+    seen = {"ldg": 0}
+    tr.LAUNCHES = 0
+    router = cluster_router(leaves, tmp)
+    try:
+        runs, launches = counted(
+            lambda: {r: loop_stats(router, queries, r, "cluster router")
+                     for r in (False, True)},
+            "the router's serve_loops", seen)
+        for rerank in (False, True):
+            st = runs[rerank]
+            got = direct_results(router, queries, rerank)
+            check(np.array_equal(st["ids"], direct[rerank][0])
+                  and np.array_equal(got[0], direct[rerank][0])
+                  and np.array_equal(got[1], direct[rerank][1]),
+                  f"cluster: ids / dists != phase 4's service "
+                  f"(rerank={rerank})")
+            b = base[rerank]
+            log(f"[cluster] {CLUSTER_SHARDS} shards x {CLUSTER_REPLICAS} "
+                f"replicas, rerank={rerank}: ids and dists bitwise equal to "
+                f"phase 4's service on {len(queries)} queries; QPS "
+                f"{st['qps']:.1f}, p50 {st['p50_ms']:.3f} ms, p99 "
+                f"{st['p99_ms']:.3f} ms against phase 4's direct "
+                f"serve_loop {b['qps']:.1f} QPS, p50 {b['p50_ms']:.3f} ms")
+        prof = profiled_loop(router, queries, "router")
+        failovers = cluster_failover(router, queries, direct[False])
+        topo = router.topology()
+        check(topo.n_shards == CLUSTER_SHARDS and topo.version >= 1,
+              f"cluster: topology {topo}")
+    finally:
+        router.close()
+    small_cluster_check(data, queries, small_path)
+    dist = distributed_check(svc, queries, leaves, seen)
+    ldg = seen["ldg"] + tr.LAUNCHES
+    per_path = {"router": launches,
+                **{f"mesh {k}": v["launches"] for k, v in dist.items()}}
+    log(f"[cluster] traversal_async.cu launches in the counted windows: "
+        f"{per_path}; traversal.cu over the whole phase {ldg}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    check(ldg == 0, f"the cluster phase launched traversal.cu {ldg} times")
+    return {"launches": sum(per_path.values()), "per_path": per_path,
+            "runs": runs, "base": base, "profile": prof,
+            "profile_direct": prof_d, "failovers": failovers, "dist": dist}
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the exact-scan kernels
 # ---------------------------------------------------------------------------
 
@@ -2935,10 +3400,12 @@ def kernel_row(name, source, replaces, launches, err, timing, bound_by):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="kernel,main,quant,csd,serve,ingest,scan,lm",
+                    default="kernel,main,quant,csd,serve,ingest,cluster,"
+                            "scan,lm",
                     help="comma list of kernel,main,quant,csd,serve,ingest,"
-                         "scan,lm (card and build always run; serve needs "
-                         "csd, csd needs quant, quant and ingest need main)")
+                         "cluster,scan,lm (card and build always run; serve "
+                         "needs csd, csd needs quant, quant, ingest and "
+                         "cluster need main)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2956,7 +3423,7 @@ def main(argv=None) -> int:
         phases.add("csd")
     if "csd" in phases:
         phases.add("quant")
-    if "quant" in phases or "ingest" in phases:
+    if phases & {"quant", "ingest", "cluster"}:
         phases.add("main")
 
     # 1. card
@@ -2981,10 +3448,10 @@ def main(argv=None) -> int:
             log(f"[build] {name}: {line.strip()}")
 
     kern = {}
-    main_out = timing = quant = scan = served = ingest = None
+    main_out = timing = quant = scan = served = ingest = clustered = None
     with tempfile.TemporaryDirectory() as tmp, \
             concurrent.futures.ProcessPoolExecutor(
-                max_workers=4,
+                max_workers=6,
                 mp_context=multiprocessing.get_context("spawn")) as pool:
         paths = {dt: str(Path(tmp) / dt) for dt in ("uint8", "int8", "pq")}
         # the workers see sys.path (so repro_torch) through spawn's
@@ -2998,6 +3465,11 @@ def main(argv=None) -> int:
         if "ingest" in phases:
             builds["ingest survivors"] = pool.submit(
                 rebuild_worker, rebuild_path, N_INGEST, DEVICE)
+        # the single index build_cluster's own check must equal
+        small_path = str(Path(tmp) / "cluster-small-single")
+        if "cluster" in phases:
+            builds["cluster check's single"] = pool.submit(
+                small_single_worker, small_path, DEVICE)
         # 3. kernel
         if "kernel" in phases:
             kern = kernel_phase(1_000_000, seed=0)
@@ -3013,14 +3485,14 @@ def main(argv=None) -> int:
                 f"{', beside the quantized builds' if builds else ''})")
             t0 = time.perf_counter()
             for dt, fut in builds.items():
-                log(f"[build] {dt} partitioned index: SearchService.build "
-                    f"{fut.result():.1f}s in its worker (saved)")
+                log(f"[build] {dt}: SearchService.build {fut.result():.1f}s "
+                    f"in its worker (saved)")
             if builds:
                 # no build competes with a timed batch: the workers exit
                 pool.shutdown(wait=True)
             if builds:
                 log(f"[build] waited {time.perf_counter() - t0:.1f}s for the "
-                    f"quantized builds")
+                    f"workers' builds")
             main_out = main_phase(svc, data, queries)
             # 5. timing
             timing = timing_phase(svc, queries[:BATCH], "main")
@@ -3044,6 +3516,10 @@ def main(argv=None) -> int:
             # 6d. ingest, the mutable index served while it grows
             if "ingest" in phases:
                 ingest = ingest_phase(data, queries, rebuild_path)
+            # 6e. cluster and distributed, over the same rows
+            if "cluster" in phases:
+                clustered = cluster_phase(svc, data, queries, small_path,
+                                          tmp)
     # 7. scan
     if "scan" in phases:
         torch.cuda.empty_cache()
@@ -3063,8 +3539,9 @@ def main(argv=None) -> int:
         t = path and (timing if dt == "float32" else path["timing"])
         sfx = "" if dt == "float32" else f"_{dt}"
         launches = path["launches"] if path else 0
-        if dt == "float32":   # the serve sweep and the ingest phase too
-            launches += sum(x["launches"] for x in (served, ingest) if x)
+        if dt == "float32":   # the serve, ingest and cluster phases too
+            launches += sum(x["launches"] for x in (served, ingest, clustered)
+                            if x)
         rows.append(kernel_row(f"fused_traversal_async{sfx}",
                                csrc + "traversal_async.cu", trav, launches,
                                kern.get(("async", dt)), t, "bytes"))

@@ -2,7 +2,8 @@
 
 The same request/response API as the reference package over the ported
 engines: exact brute force, monolithic HNSW, the paper's partitioned
-two-stage engine and its out-of-core `csd` form over a block store, on
+two-stage engine, its graph-parallel `distributed` form over a mesh of
+device slots and its out-of-core `csd` form over a block store, on
 float32, scalar-quantized and product-quantized rows, and the mutable
 segmented index (`MutableSearchService`, exported lazily).
 """

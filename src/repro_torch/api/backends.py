@@ -9,14 +9,18 @@ loads an index the other saved:
   hnsw        : one monolithic graph (partitioned with P=1)
   partitioned : the paper's two-stage engine — P sub-graphs, stage-2 merge,
                 optional exact rerank
+  distributed : partitions sharded over a mesh's `model` slots, queries
+                over its `data` slots, with a gather-and-merge stage 2
+                (paper Fig. 10/11; `core/distributed.py`)
   csd         : out-of-core over the block store (repro_torch.store) — the
                 paper's computational-storage platform
 
 Every backend serves float32, scalar-quantized (uint8 / int8) and
-product-quantized (`pq`) rows, as `IndexSpec.dtype` says. `distributed`
-exists in the reference but is not ported yet: asking for it raises
-NotImplementedError. Every backend holds its tensors on one `device`
-(`cuda` unless the caller asked for the CPU).
+product-quantized (`pq`) rows, as `IndexSpec.dtype` says. Every backend
+holds its tensors on one `device` (`cuda` unless the caller asked for the
+CPU) but `distributed`, which places them over its mesh's slots and
+answers on the first slot's device. `build` / `from_state` take the mesh
+as `mesh=` (None: every card, or one CPU slot); the others ignore it.
 """
 
 from __future__ import annotations
@@ -40,12 +44,12 @@ from repro_torch.kernels.ops import pq_topk
 from repro_torch.optim.compression import build_pq_lut
 
 __all__ = ["register_backend", "get_backend", "available_backends",
-           "CSDBackend", "ExactBackend", "HNSWBackend",
-           "PartitionedBackend"]
+           "CSDBackend", "DistributedBackend", "ExactBackend",
+           "HNSWBackend", "PartitionedBackend"]
 
 _BACKENDS: dict[str, type] = {}
 # in the reference, not yet in the port
-_UNPORTED = ("distributed",)
+_UNPORTED: tuple = ()
 
 
 def register_backend(name: str):
@@ -126,7 +130,7 @@ class ExactBackend:
         self.n = n
 
     @classmethod
-    def build(cls, vectors: np.ndarray, spec: IndexSpec, device):
+    def build(cls, vectors: np.ndarray, spec: IndexSpec, device, mesh=None):
         return cls(spec, vectors, device)
 
     def search(self, queries, k: int, ef: int, rerank: bool,
@@ -154,7 +158,7 @@ class ExactBackend:
                          "dim": np.int32(self.raw.shape[1])}}
 
     @classmethod
-    def from_state(cls, spec: IndexSpec, leaves: dict, device):
+    def from_state(cls, spec: IndexSpec, leaves: dict, device, mesh=None):
         return cls(spec, leaves["exact/raw"], device)
 
 
@@ -181,12 +185,12 @@ class PartitionedBackend:
     forced_partitions: int | None = None
 
     def __init__(self, spec: IndexSpec, pdb: PartitionedDB,
-                 raw: np.ndarray | None, device):
+                 raw: np.ndarray | None, device, mesh=None):
         self.spec = spec
         self.device = torch.device(device)
         self.quant = spec.quantizer()
         self.is_pq = spec.dtype == "pq"
-        self.pdb = pdb._replace(db=hg.device_db(pdb.db, self.device))
+        self._place(pdb, mesh)
         self.codebooks = (torch.as_tensor(self.quant.codebooks,
                                           device=self.device)
                           if self.is_pq else None)
@@ -200,8 +204,11 @@ class PartitionedBackend:
         else:
             self.dev_vectors = self.dev_sqnorms = None
 
+    def _place(self, pdb: PartitionedDB, mesh) -> None:
+        self.pdb = pdb._replace(db=hg.device_db(pdb.db, self.device))
+
     @classmethod
-    def build(cls, vectors: np.ndarray, spec: IndexSpec, device):
+    def build(cls, vectors: np.ndarray, spec: IndexSpec, device, mesh=None):
         """`vectors` are codes for uint8/int8 (the service encodes them)
         and the original float32 rows for pq: the graphs are built at
         full precision and the code rows swapped in afterwards."""
@@ -209,35 +216,43 @@ class PartitionedBackend:
         pdb = build_partitioned_db(vectors, p, spec.hnsw)
         pdb = quantize_db_vectors(
             pdb, spec.dtype, spec.quantizer() if spec.dtype == "pq" else None)
-        return cls(spec, pdb, vectors if spec.keep_vectors else None, device)
+        return cls(spec, pdb, vectors if spec.keep_vectors else None, device,
+                   mesh=mesh)
 
     def params(self, k: int, ef: int) -> SearchParams:
         return SearchParams(ef=ef, k=k, metric=self.spec.metric,
                             fused_hops=self.spec.fused_hops)
 
+    def stage1(self, q, p: SearchParams, merge: bool):
+        """Stage 1 over every partition: merged (ids, dists [B, k]) or the
+        unmerged [B, P*k] pool, and the raw per-partition stats."""
+        lut = build_pq_lut(q, self.codebooks) if self.is_pq else None
+        if merge:
+            return search_partitioned(self.pdb, q, p, lut)
+        return search_partitioned_candidates(self.pdb, q, p, lut)
+
+    def query_stats(self, st) -> QueryStats:
+        return QueryStats(hops=st.hops.sum(0, dtype=torch.int32),
+                          dist_calcs=st.dist_calcs.sum(0, dtype=torch.int32))
+
     def search(self, queries, k: int, ef: int, rerank: bool,
                with_stats: bool):
         p = self.params(k, ef)
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-        lut = build_pq_lut(q, self.codebooks) if self.is_pq else None
         if rerank:
             if self.dev_vectors is None:
                 raise ValueError(
                     "rerank=True needs the raw vectors: build the index "
                     "with IndexSpec(keep_vectors=True)")
-            cand, _, st = search_partitioned_candidates(self.pdb, q, p, lut)
+            cand, _, st = self.stage1(q, p, merge=False)
             rq = self.quant.decode(q) if self.scalar else q
             ids, dists = batched_rerank(self.dev_vectors, self.dev_sqnorms,
                                         rq, cand, k, self.spec.metric)
         else:
-            ids, dists, st = search_partitioned(self.pdb, q, p, lut)
+            ids, dists, st = self.stage1(q, p, merge=True)
             if self.scalar:               # code space -> real space
                 dists = dists * float(np.float32(self.quant.dist_scale))
-        stats = None
-        if with_stats:
-            stats = QueryStats(hops=st.hops.sum(0, dtype=torch.int32),
-                               dist_calcs=st.dist_calcs.sum(
-                                   0, dtype=torch.int32))
+        stats = self.query_stats(st) if with_stats else None
         return ids, dists, stats
 
     def state_tree(self) -> dict:
@@ -250,7 +265,7 @@ class PartitionedBackend:
         return tree
 
     @classmethod
-    def from_state(cls, spec: IndexSpec, leaves: dict, device):
+    def from_state(cls, spec: IndexSpec, leaves: dict, device, mesh=None):
         """Rebuild from the {leaf-path: np.ndarray} dict of a checkpoint
         step — the port's or the reference's (`read_step_leaves`)."""
         db = hg.DeviceDB(**{k.split("/", 1)[1]: np.asarray(v)
@@ -259,7 +274,7 @@ class PartitionedBackend:
         pdb = PartitionedDB(db=db,
                             num_partitions=int(leaves["meta/num_partitions"]),
                             dim=int(leaves["meta/dim"]))
-        return cls(spec, pdb, leaves.get("vectors/raw"), device)
+        return cls(spec, pdb, leaves.get("vectors/raw"), device, mesh=mesh)
 
 
 @register_backend("hnsw")
@@ -267,6 +282,93 @@ class HNSWBackend(PartitionedBackend):
     """Single monolithic graph — partitioned with exactly one partition."""
 
     forced_partitions = 1
+
+
+# ---------------------------------------------------------------------------
+# distributed
+# ---------------------------------------------------------------------------
+
+
+@register_backend("distributed")
+class DistributedBackend(PartitionedBackend):
+    """Graph parallelism over the mesh `model` axis (paper §6.3): each
+    slot searches only its resident block of sub-graphs, the query batch
+    splits over the `data` / `pod` slots, and stage 2 gathers the pools
+    in slot order and merges them (`core/distributed.py`). Every slot's
+    layer 0 runs the fused traversal at `fused_hops`, as partitioned's
+    does, so the answers are partitioned's, bit for bit. The search
+    callables are cached per (k, ef, merge)."""
+
+    def __init__(self, spec: IndexSpec, pdb: PartitionedDB,
+                 raw: np.ndarray | None, device, mesh=None):
+        mesh = _check_mesh(pdb.num_partitions, device, mesh)
+        self.mesh = mesh
+        self._fns: dict = {}
+        super().__init__(spec, pdb, raw, mesh.devices.flat[0], mesh=mesh)
+
+    def _place(self, pdb: PartitionedDB, mesh) -> None:
+        from repro_torch.core.distributed import shard_db
+
+        self.sdb = shard_db(pdb, mesh)
+
+    @classmethod
+    def build(cls, vectors: np.ndarray, spec: IndexSpec, device, mesh=None):
+        mesh = _check_mesh(spec.num_partitions, device, mesh)  # pre-build
+        return super().build(vectors, spec, device, mesh=mesh)
+
+    def _fn(self, p: SearchParams, merge: bool):
+        key = (p.k, p.ef, merge)
+        if key not in self._fns:
+            from repro_torch.core.distributed import make_distributed_search
+            from repro_torch.launch.mesh import dp_axes
+
+            maxM0 = int(next(iter(self.sdb.slots.values()))[1]
+                        .l0_nbrs.shape[-1])
+            self._fns[key] = make_distributed_search(
+                self.mesh, p, maxM0, graph_axes=("model",),
+                query_axes=dp_axes(self.mesh), merge=merge)
+        return self._fns[key]
+
+    def stage1(self, q, p: SearchParams, merge: bool):
+        """(ids, dists, calcs [B, 1]) over the mesh."""
+        lut = build_pq_lut(q, self.codebooks) if self.is_pq else None
+        return self._fn(p, merge)(self.sdb, q, lut)
+
+    def query_stats(self, calcs) -> QueryStats:
+        # the reference's: dist_calcs summed over every slot, no hops
+        return QueryStats(dist_calcs=calcs[:, 0])
+
+    def state_tree(self) -> dict:
+        tree = {"db": self.sdb.host_db()._asdict(),
+                "meta": {"num_partitions": np.int32(self.sdb.num_partitions),
+                         "dim": np.int32(self.sdb.dim)}}
+        if self.raw is not None:
+            tree["vectors"] = {"raw": self.raw}
+        return tree
+
+
+def _check_mesh(num_partitions: int, device, mesh):
+    """The mesh a distributed index runs on: `mesh`, or the default one on
+    `device`'s kind (every visible card over ("model",), or one CPU
+    slot); its slots must be of `device`'s kind and P must divide over
+    its `model` axis."""
+    from repro_torch.launch.mesh import make_mesh
+
+    device = torch.device(device)
+    if mesh is None:
+        mesh = (make_mesh((torch.cuda.device_count(),), ("model",))
+                if device.type == "cuda"
+                else make_mesh((1,), ("model",), devices=("cpu",)))
+    kinds = {d.type for d in mesh.devices.flat}
+    if kinds != {device.type}:
+        raise ValueError(f"the mesh's slots are on {sorted(kinds)}; the "
+                         f"index was asked for {device.type!r}")
+    n_model = mesh.shape.get("model", 1)
+    if num_partitions % n_model != 0:
+        raise ValueError(
+            f"num_partitions={num_partitions} must divide over the mesh "
+            f"model axis ({n_model})")
+    return mesh
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@
     svc2 = SearchService.load("/ckpt/index")   # latest committed version
 
 `build` and `load` run on CUDA unless `device="cpu"` is passed; with no
-CUDA device they raise. The on-disk layout is the reference's:
+CUDA device they raise. `mesh=` (a `launch.mesh.make_mesh` grid of device
+slots) places a `distributed` index; its slots must be of the device's
+kind. The on-disk layout is the reference's:
 
     <path>/index_manifest.json   (format version + IndexSpec)
     <path>/step_<N>/             (checkpoint steps; load opens the latest)
@@ -69,7 +71,7 @@ class SearchService:
 
     @classmethod
     def build(cls, vectors, spec: IndexSpec | None = None, *,
-              device=None) -> "SearchService":
+              device=None, mesh=None) -> "SearchService":
         """Build an index over raw vectors on `device` (default: the card).
         The metric's data preprocessing (cosine normalization) happens
         here — backends only see metric-prepared vectors. A quantized spec
@@ -106,7 +108,8 @@ class SearchService:
                 spec = dataclasses.replace(spec, qscale=quant.scale,
                                            qzero=quant.zero_point)
                 prepared = quant.encode(prepared)
-        return cls(spec, backend_cls.build(prepared, spec, device))
+        return cls(spec, backend_cls.build(prepared, spec, device,
+                                           mesh=mesh))
 
     # -- serving ------------------------------------------------------------
 
@@ -168,7 +171,8 @@ class SearchService:
         return out
 
     @classmethod
-    def load(cls, path: str, *, device=None) -> "SearchService":
+    def load(cls, path: str, *, device=None,
+             mesh=None) -> "SearchService":
         """Re-open the latest committed version of a saved index on
         `device` (default: the card): format version 1 or 3. Indexes saved
         before the manifest existed (bare step dirs) load as partitioned
@@ -186,7 +190,7 @@ class SearchService:
             spec = IndexSpec(backend="partitioned",
                              num_partitions=int(leaves["meta/num_partitions"]))
             return cls(spec, get_backend(spec.backend).from_state(
-                spec, leaves, device))
+                spec, leaves, device, mesh=mesh))
         with open(manifest_path) as f:
             manifest = json.load(f)
         version = manifest.get("format_version")
@@ -204,4 +208,4 @@ class SearchService:
                 f"no committed checkpoint step under {path!r}")
         leaves = read_step_leaves(path, step)
         return cls(spec, get_backend(spec.backend).from_state(
-            spec, leaves, device))
+            spec, leaves, device, mesh=mesh))

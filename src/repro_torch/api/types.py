@@ -35,8 +35,7 @@ class IndexSpec:
     """Everything needed to build (or re-open) an index.
 
     metric  : "l2" | "ip" | "cosine" (see api.metrics)
-    backend : "exact" | "hnsw" | "partitioned" | "csd" ported;
-              "distributed" raises NotImplementedError
+    backend : "exact" | "hnsw" | "partitioned" | "distributed" | "csd"
     num_partitions : stage-1 sub-graph count (paper §4.1)
     dtype   : "float32" | "uint8" | "int8" | "pq" (metric "l2" only for
               the quantized ones)

@@ -5,7 +5,7 @@ Three layers reduce ragged per-source top-k lists to one global top-k:
 
   * `repro_torch.ingest` merges memtable + sealed segments (tombstoned
     lanes masked dead first),
-  * the cluster router (the reference's `repro.cluster`, not ported yet)
+  * the cluster router (`repro_torch.cluster`)
     merges per-shard scatter-gather results,
   * both are the host-side mirror of `core.partitioned.merge_topk`, the
     on-device stage-2 reduction (paper §4.1).

@@ -20,9 +20,12 @@ The index runs on the card unless `--device cpu` is given.
 
 `--backend csd` serves out of core from a block store at `--storage` (a
 new temporary directory when it is not given); async csd replicas each
-open their own page cache over it. The reference's cluster flags
-(`--shards`, `--shard-replicas`) and `--backend distributed` wait for the
-port of its cluster layer.
+open their own page cache over it. `--backend distributed` shards the
+partitions over the default mesh (every card over `model`; one slot on
+the CPU). With `--shards N` the index is built as a `repro_torch.cluster`
+scatter-gather cluster instead of one service (`--shard-replicas R` for
+per-shard failover sets); either request path fronts the router
+unchanged.
 """
 
 from __future__ import annotations
@@ -125,6 +128,18 @@ def build_service(args, ds: VectorDataset) -> SearchService:
                      hnsw=HNSWConfig(M=args.M),
                      keep_vectors=args.rerank and args.backend != "csd",
                      storage_path=storage)
+    if args.shards > 1:
+        from repro_torch.cluster import build_cluster
+        print(f"[serve] building {args.shards}-shard {spec.backend} cluster "
+              f"(x{args.shard_replicas} replicas, "
+              f"{args.partitions} partitions/shard, metric={spec.metric}) "
+              f"over {args.n} vectors on {args.device or 'cuda'} ...")
+        t0 = time.perf_counter()
+        router = build_cluster(ds.vectors(), spec, args.shards,
+                               replicas=args.shard_replicas, path=storage,
+                               device=args.device)
+        print(f"[serve] build {time.perf_counter()-t0:.1f}s")
+        return router
     print(f"[serve] building {spec.backend} index "
           f"({args.partitions} partitions, metric={spec.metric}) over "
           f"{args.n} vectors on {args.device or 'cuda'} ...")
@@ -148,12 +163,18 @@ def main(argv=None):
     ap.add_argument("--metric", default="l2",
                     choices=["l2", "ip", "cosine"])
     ap.add_argument("--backend", default="partitioned",
-                    choices=["exact", "hnsw", "partitioned", "csd"])
+                    choices=["exact", "hnsw", "partitioned", "distributed",
+                             "csd"])
     ap.add_argument("--rerank", action="store_true")
     ap.add_argument("--serve-async", action="store_true",
                     help="serve through repro_torch.serve (queue + dynamic "
                          "batcher + replica pool) instead of the sync loop")
     ap.add_argument("--replicas", type=int, default=2)
+    ap.add_argument("--shards", type=int, default=1,
+                    help="shard the index across N cluster workers "
+                         "(repro_torch.cluster scatter-gather router)")
+    ap.add_argument("--shard-replicas", type=int, default=1,
+                    help="replicas per shard (failover set)")
     ap.add_argument("--max-batch", type=int, default=None,
                     help="dynamic batcher flush size (default: --batch)")
     ap.add_argument("--max-wait-ms", type=float, default=2.0)

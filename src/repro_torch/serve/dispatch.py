@@ -15,7 +15,9 @@ backend-aware, as the reference's:
                         shared block store, exactly the paper's four
                         SmartSSD DRAMs in front of one logical database;
   mutable index       : every replica shares the one service (clones
-                        would diverge on writes).
+                        would diverge on writes);
+  cluster router      : every replica shares the router (its shards
+                        replicate one layer down, with failover).
 
 Selection is least-in-flight-depth with a round-robin tiebreak; each
 replica runs a single worker thread, so batches on one replica serialize
@@ -207,6 +209,12 @@ def _clone_service(service, i: int):
     Sharing is always safe — `search` is functional over immutable state —
     so every branch that cannot (or need not) clone falls back to it."""
     from repro_torch.api.service import SearchService
+
+    if hasattr(service, "shards"):
+        # cluster router (repro_torch.cluster): replication already happens
+        # one layer down (per-shard replica sets with failover), so server
+        # lanes share the one router — it is thread-safe by construction.
+        return service, False
 
     if hasattr(service, "insert") and hasattr(service, "compact"):
         # mutable segmented index (repro_torch.ingest): every replica MUST

@@ -695,7 +695,8 @@ class CSDBackend:
         return spec.storage_path
 
     @classmethod
-    def build(cls, vectors: np.ndarray, spec: IndexSpec, device=None):
+    def build(cls, vectors: np.ndarray, spec: IndexSpec, device=None,
+              mesh=None):
         path = cls._storage_path(spec)
         pdb = build_partitioned_db(vectors, spec.num_partitions, spec.hnsw)
         return cls._write(path, pdb, spec, device=device)
@@ -874,7 +875,8 @@ class CSDBackend:
                          "block_size": np.int32(self.spec.block_size)}}
 
     @classmethod
-    def from_state(cls, spec: IndexSpec, leaves: dict, device=None):
+    def from_state(cls, spec: IndexSpec, leaves: dict, device=None,
+                   mesh=None):
         path = cls._storage_path(spec)
         return cls(spec, open_store(path, spec.cache_bytes,
                                     prefetch=spec.prefetch), device)

@@ -3,9 +3,10 @@
 An index saved by the reference loads into the port (device="cpu") and
 answers bitwise the same on integer-valued data, rerank off and on; the
 port's save loads back into the reference. Also: exact-backend parity,
-no silent CPU fallback, the unported backend raises (quantized or not),
-csd refuses a spec without a block-store path, the package imports no
-JAX and nothing of the reference, and the serve CLI runs on the CPU.
+no silent CPU fallback, the once-unported distributed backend builds
+(quantized or not), csd refuses a spec without a block-store path, the
+package imports no JAX and nothing of the reference, and the serve CLI
+runs on the CPU.
 """
 
 import dataclasses
@@ -154,10 +155,24 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(data, ref_saved,
 @pytest.mark.parametrize("change", [
     {"dtype": "pq", "backend": "distributed"}, {"backend": "distributed"}])
 def test_unported_branches_raise(data, change):
-    v, _ = data
-    spec = dataclasses.replace(IndexSpec(), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SearchService.build(v, spec, device="cpu")
+    """No backend is left unported: the branches that raised
+    NotImplementedError until the distributed backend was ported
+    (quantized or not) now build on the CPU's default mesh and answer as
+    the partitioned backend over the same rows."""
+    from repro_torch.api import backends
+
+    v, q = data
+    assert backends._UNPORTED == ()
+    spec = dataclasses.replace(IndexSpec(hnsw=HNSWConfig(M=8)), **change)
+    got = SearchService.build(v, spec, device="cpu")
+    want = SearchService.build(v, dataclasses.replace(
+        spec, backend="partitioned", pq_codebooks=got.spec.pq_codebooks),
+        device="cpu")
+    assert type(got.backend).__name__ == "DistributedBackend"
+    a, b = (svc.search(SearchRequest(queries=q, k=K, ef=EF))
+            for svc in (got, want))
+    np.testing.assert_array_equal(a.ids.numpy(), b.ids.numpy())
+    np.testing.assert_array_equal(a.dists.numpy(), b.dists.numpy())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "uint8"])
