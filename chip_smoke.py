@@ -107,7 +107,32 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                a query, the cache hit rate, supersteps a batch, one
                batch's host time by the port's TRACER spans (store-read,
                hop_superstep, hop-kernel, rerank) and the device's busy
-               time (torch.profiler) beside the batch's p50.
+               time (torch.profiler) beside the batch's p50. Each store's
+               own series (its backend's and page cache's uid, and the
+               profiler's stage histograms) over its timed rerank-off
+               batches are kept for the cost phase.
+  cost     — the port's cost model (`launch/roofline.py`,
+               `costmodel.py`, `ann_dryrun.py`, `obs/calibrate.py`)
+               against the card, right after 6b, from its four stores'
+               traffic (no new build, no new index): (a) the card is an
+               H100 with its memory within 10 % of HW.hbm_bytes and 132
+               SMs, and a 4 GiB device-to-device copy (median of 5, CUDA
+               events) reads and writes at a share of HW.hbm_bw in [0.5,
+               1.05]; (b) for each csd dtype, `calibrate` and
+               `compare_terms` over the store's 6b window: the fitted hit
+               rate, effective storage bandwidth, blocks and supersteps a
+               query and dispatch overhead, each term's modeled, measured
+               and calibrated values, beside hop-kernel's and the
+               device's busy ms a superstep; checks: storage, fanout and
+               dispatch all fitted, the storage term's calibrated /
+               measured in [0.5, 2], csd_queries_total = the queries
+               served; (c) `python -m repro_torch.launch.ann_dryrun
+               --calibrated` on the float32 window as a subprocess: its
+               last line JSON with fits_hbm true and
+               calibrated_qps_per_device, and phase 4's rerank-off QPS
+               as a share of its memory-bound bound; (d) the dry-run's
+               working-set formula at phase 4's batch beside the rise of
+               max_memory_allocated over one batch (printed, no gate).
 
   6c. serve  — the async serving layer (repro_torch.serve) over phase 4's
                float32 partitioned service: SearchServer with max_wait_ms
@@ -283,13 +308,22 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (NVIDIA data sheet)
-FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
-TF32_FLOPS = 495e12              # H100 SXM dense TF32 tensor cores
-INT8_OPS = 1979e12               # H100 SXM dense int8 tensor cores
-# shared-memory lookups a second: 32 banks a clock on each of 132 SMs at
-# the 1.98 GHz boost clock (Hopper white paper); a floor for the PQ kernels
-SMEM_LOOKUPS_PER_S = 32 * 132 * 1.98e9
+# The card's peak rates (NVIDIA's H100 SXM data sheet) have one home, the
+# port's `launch/roofline.HW`. Alone in its directory this file finds no
+# port: the rates stay None and main() refuses to run.
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.launch.roofline import HW
+except ImportError:
+    HW = None
+_PEAK = HW() if HW else None
+HBM_BYTES_PER_S = _PEAK and _PEAK.hbm_bw        # device memory
+FP32_FLOPS = _PEAK and _PEAK.fp32_flops         # float32 outside the TCs
+TF32_FLOPS = _PEAK and _PEAK.tf32_flops         # dense TF32 tensor cores
+INT8_OPS = _PEAK and _PEAK.int8_ops             # dense int8 tensor cores
+BF16_FLOPS = _PEAK and _PEAK.peak_flops         # dense bf16 tensor cores
+# shared-memory lookups a second: a floor for the PQ kernels
+SMEM_LOOKUPS_PER_S = _PEAK and _PEAK.smem_lookups
 DEVICE = "cuda"
 N_MAIN, N_QUERIES, BATCH, PQ_M = 32768, 2048, 256, 16
 # the csd phase: block bytes, the page cache at most 1 / CSD_CACHE_SHARE
@@ -316,7 +350,6 @@ HNSW_M, HNSW_EFC, P_MAIN = 16, 100, 4
 # within SCAN_TOL * (|q|^2 + |x|^2) (sums in another order; see
 # tests/test_torch_scan.py)
 N_SCAN, SCAN_K, SCAN_TOL = 1_000_000, 10, 1e-5
-BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
 # the lm phase: deepseek-v2-lite-16b, B prompts of T tokens, a cache of S
 # positions, greedy decode steps; the router's k; (c)'s prompt length
 LM_ARCH, LM_B, LM_T, LM_S, LM_STEPS = "deepseek_v2_lite_16b", 8, 2048, 2080, 32
@@ -817,16 +850,16 @@ def answer(svc, q, h=None, rerank=False, stats=False):
             be.spec = old
 
 
-def serve_paths(svc, queries, gt, what: str, gate: dict) -> dict:
+def serve_paths(svc, queries, gt, what: str, gate: dict):
     """serve_loop rerank off and on, each after one untimed batch, with
     recall@10 against `gt`; `gate` maps rerank -> the least recall, if
-    any. Returns ids per rerank."""
+    any. Returns ids and serve_loop's stats, each per rerank."""
     from repro_torch.launch.serve import serve_loop
 
     from repro_torch.api import SearchRequest
 
     n_batches = len(queries) // BATCH
-    ids_by = {}
+    ids_by, stats_by = {}, {}
     for rerank in (False, True):
         # one untimed batch first: the timed loop starts on a warm service
         svc.search(SearchRequest(queries[:BATCH], k=10, ef=40,
@@ -841,8 +874,8 @@ def serve_paths(svc, queries, gt, what: str, gate: dict) -> dict:
         if rerank in gate:
             check(rec >= gate[rerank], f"{what}: recall@10 {rec:.4f} < "
                                        f"{gate[rerank]} (rerank={rerank})")
-        ids_by[rerank] = ids
-    return ids_by
+        ids_by[rerank], stats_by[rerank] = ids, st
+    return ids_by, stats_by
 
 
 def check_fused_hops(svc, queries, what: str) -> None:
@@ -929,7 +962,8 @@ def main_phase(svc, data, queries) -> dict:
     n_batches = len(queries) // BATCH
     tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
     reset_adc_counts()
-    ids_by = serve_paths(svc, queries, gt, "main", {False: 0.95, True: 0.95})
+    ids_by, st = serve_paths(svc, queries, gt, "main",
+                             {False: 0.95, True: 0.95})
     launches = check_traversal_launches("main", n_batches)
     check_fused_hops(svc, queries, "main")
     with tempfile.TemporaryDirectory() as tmp:
@@ -937,7 +971,8 @@ def main_phase(svc, data, queries) -> dict:
         cpu = SearchService.load(tmp, device="cpu")
     check_cpu_copy(svc, cpu, queries[:BATCH], "main")
     take_adc_counts("main")
-    return {"launches": launches, "gt": gt, "ids": ids_by}
+    return {"launches": launches, "gt": gt, "ids": ids_by,
+            "qps": st[False]["qps"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1099,7 +1134,7 @@ def scalar_phase(path: str, dtype: str, queries, main_out) -> dict:
     gate = {False: 0.95, True: 0.95} if dtype == "uint8" else {True: 0.90}
     tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
     reset_adc_counts()
-    ids_by = serve_paths(svc, queries, main_out["gt"], dtype, gate)
+    ids_by, _ = serve_paths(svc, queries, main_out["gt"], dtype, gate)
     launches = check_traversal_launches(dtype, len(queries) // BATCH)
     if dtype == "uint8":
         if exact_bytes:
@@ -1304,7 +1339,7 @@ def pq_phase(path: str, data, queries, gt) -> dict:
                              ** 2).sum(1)))
     log(f"[pq-exact] ids equal to a host numpy ADC top-10 on one batch; "
         f"mean squared reconstruction error {rec_err:.1f} a row")
-    by = serve_paths(spq, queries, gt, "pq", {})
+    by, _ = serve_paths(spq, queries, gt, "pq", {})
     overlap = recall_at(by[False], ids)
     rec = {r: recall_at(by[r], gt) for r in (False, True)}
     log(f"[pq] partitioned rerank off against the exact ADC scan: top-10 "
@@ -1389,6 +1424,8 @@ def csd_phase(tmp: str, parts: dict, queries) -> dict:
 
     from repro_torch.api import SearchRequest, SearchService
     from repro_torch.launch.serve import serve_loop
+    from repro_torch.obs import REGISTRY
+    from repro_torch.obs.calibrate import store_window
     from repro_torch.store import CSDBackend
 
     q0 = queries[:BATCH]
@@ -1414,12 +1451,18 @@ def csd_phase(tmp: str, parts: dict, queries) -> dict:
             f"(1/{store / cache:.2f} of the store), prefetch on")
         lat, served = {}, {}
         reset_adc_counts()
+        # the cost phase's calibration window: this store's series over
+        # the timed rerank-off batches (the profiler is on by default)
+        uids = (svc.backend.uid, svc.backend.reader.cache.uid)
         for rerank in (False, True):
             svc.search(SearchRequest(q0, k=10, ef=40, rerank=rerank)).ids.cpu()
+            before = REGISTRY.snapshot()
             served[rerank], st = serve_loop(svc, queries[:BATCH * CSD_BATCHES], BATCH, 10,
                                40, rerank=rerank,
                                log=lambda m: log(f"[{what}] rerank={rerank} "
                                                  f"{m}"))
+            if not rerank:
+                window = store_window(before, REGISTRY.snapshot(), uids)
             lat[rerank] = st
             log(f"[{what}] rerank={rerank}: QPS {st['qps']:.1f}, p50 "
                 f"{st['p50_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms per "
@@ -1476,13 +1519,167 @@ def csd_phase(tmp: str, parts: dict, queries) -> dict:
         cpu.backend.reader.close()
         svc.backend.reader.close()
         out[dt] = {"store_bytes": store, "cache_bytes": cache,
-                   "spec": spec, "ids": served,
+                   "spec": spec, "ids": served, "window": window,
                    "serve": lat, "split": split, "busy_ms": busy,
                    "stats": {h: {f: getattr(s, f) for f in (
                        "block_reads", "bytes_read", "cache_hit_rate",
                        "supersteps")} for h, s in ((1, s1), (4, s4))}}
         log(f"[{what}] phase {time.perf_counter() - t0:.1f}s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the cost phase: the port's cost model against the card and 6b's traffic
+# ---------------------------------------------------------------------------
+
+COPY_BYTES = 4 << 30             # (a)'s device-to-device copy, 4 GiB
+
+
+def hbm_copy_share() -> float:
+    """(a) The card against the roofline's HW: an H100, its memory within
+    10 % of HW.hbm_bytes, 132 SMs (the count inside HW.smem_lookups), and
+    a COPY_BYTES device-to-device copy's bandwidth (bytes read plus bytes
+    written over the median of 5 CUDA-event timings) as a share of
+    HW.hbm_bw, which must lie in [0.5, 1.05]."""
+    props = torch.cuda.get_device_properties(0)
+    check("H100" in props.name, f"cost: the card is {props.name}")
+    check(abs(props.total_memory - _PEAK.hbm_bytes) <= 0.1 * _PEAK.hbm_bytes,
+          f"cost: {props.total_memory} bytes of device memory against "
+          f"HW.hbm_bytes {_PEAK.hbm_bytes:.0f}")
+    check(props.multi_processor_count == 132,
+          f"cost: {props.multi_processor_count} SMs, HW.smem_lookups "
+          f"counts 132")
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    dst = torch.empty_like(src)
+    ms = median_ms(lambda: dst.copy_(src))
+    del src, dst
+    share = 2 * COPY_BYTES / (ms / 1e3) / _PEAK.hbm_bw
+    log(f"[cost] (a) {props.name}: {props.total_memory} bytes "
+        f"({props.total_memory / _PEAK.hbm_bytes:.4f} of HW.hbm_bytes), "
+        f"{props.multi_processor_count} SMs; a {COPY_BYTES}-byte copy "
+        f"{ms:.4f} ms (median of 5): {2 * COPY_BYTES / ms / 1e9:.4f} TB/s "
+        f"read + written, {share:.4f} of HW.hbm_bw "
+        f"({_PEAK.hbm_bw / 1e12:.2f} TB/s)")
+    check(0.5 <= share <= 1.05, f"cost: the copy reads {share:.4f} of "
+                                f"HW.hbm_bw, outside [0.5, 1.05]")
+    return share
+
+
+def calibrate_store(dt: str, o: dict) -> dict:
+    """(b) One csd store's calibration from its 6b window (its own series
+    over the timed rerank-off batches): the fitted parameters and each
+    term's modeled, measured and calibrated values. Checks the reference's
+    live bar (`tests/test_calibrate.py`): storage, fanout and dispatch
+    all fitted, the storage term's calibrated / measured in [0.5, 2], and
+    csd_queries_total equal to the queries served."""
+    from repro_torch.obs import calibrate, compare_terms
+
+    what, snap = f"csd-{dt}", o["window"]
+    cal, n = calibrate(snap), BATCH * CSD_BATCHES
+    terms = compare_terms(cal)
+    queries = sum(c["value"] for c in snap["counters"]
+                  if c["name"] == "csd_queries_total")
+    check(queries == n, f"cost: {what} csd_queries_total {queries}, "
+                        f"{n} served")
+    missing = [t for t, v in terms.items() if v.get("unavailable")]
+    check(not missing, f"cost: {what} terms unavailable: {missing}")
+    st = terms["storage"]
+    ratio = st["calibrated"] / st["measured"]
+    check(0.5 <= ratio <= 2.0, f"cost: {what} storage calibrated / "
+                               f"measured {ratio:.4f} outside [0.5, 2]")
+    kern = [h for h in snap["histograms"]
+            if h["labels"].get("stage") == "hop-kernel"]
+    kern_ms = sum(h["sum"] for h in kern) / max(1, sum(h["count"]
+                                                      for h in kern))
+    steps = o["stats"][4]["supersteps"]
+    busy = o["busy_ms"] / steps
+    log(f"[cost] (b) {what}: {n} queries, cache_hit_rate "
+        f"{cal.cache_hit_rate:.4f}, effective_ssd_bw "
+        f"{cal.effective_ssd_bw / 1e9:.4f} GB/s, blocks_per_query "
+        f"{cal.blocks_per_query:.2f}, supersteps_per_query "
+        f"{cal.supersteps_per_query:.4f}, dispatch_overhead_s "
+        f"{cal.dispatch_overhead_s:.3e} a superstep; beside it hop-kernel "
+        f"(the submission) {kern_ms:.4f} ms and the device busy "
+        f"{busy:.4f} ms a superstep ({o['busy_ms']:.3f} ms over {steps} "
+        f"supersteps of one batch, 6b)")
+    for name, t in terms.items():
+        log(f"[cost] (b) {what} {name}: modeled {t['modeled']}, measured "
+            f"{t['measured']}, calibrated {t['calibrated']} {t['unit']} "
+            f"(rel. error {t['rel_error']}, calibrated "
+            f"{t['calibrated_rel_error']})")
+    return {"fitted": cal.asdict(), "terms": terms, "storage_ratio": ratio,
+            "hop_kernel_ms": kern_ms, "busy_ms_step": busy}
+
+
+def dryrun_check(metrics: str, main_qps: float) -> dict:
+    """(c) `python -m repro_torch.launch.ann_dryrun --calibrated METRICS`
+    as a subprocess: its last line parses as JSON with fits_hbm true and
+    calibrated_qps_per_device present; phase 4's measured QPS is printed
+    as a share of its memory-bound bound."""
+    import os
+
+    path = os.pathsep.join(filter(None, (str(ROOT / "src"),
+                                         os.environ.get("PYTHONPATH"))))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.ann_dryrun",
+         "--calibrated", metrics], cwd=ROOT, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=path), timeout=300)
+    check(out.returncode == 0, f"cost: ann_dryrun exited {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    work = rec["calibration"].get("measured_workload", {})
+    check(rec["fits_hbm"] is True, f"cost: ann_dryrun: resident "
+                                   f"{rec['resident_bytes']} B past HBM")
+    check("calibrated_qps_per_device" in work,
+          "cost: ann_dryrun gave no calibrated_qps_per_device")
+    bound = rec["modeled_worstcase_qps_per_chip"]
+    log(f"[cost] (c) ann_dryrun --calibrated (csd-float32): "
+        f"db_bytes_per_device {rec['db_bytes_per_device']}, resident_bytes "
+        f"{rec['resident_bytes']}, fits_hbm {rec['fits_hbm']}, gather "
+        f"{rec['collectives']['gather']:.0f} B a batch of 4,096; "
+        f"calibrated_qps_per_device {work['calibrated_qps_per_device']}; "
+        f"modeled_worstcase_qps_per_chip {bound} against phase 4's "
+        f"{main_qps:.1f} QPS: {main_qps / bound:.4f} of it")
+    return {"record": rec, "main_share": main_qps / bound}
+
+
+def working_set_check(svc, queries) -> dict:
+    """(d) ann_dryrun's working-set formula at phase 4's batch (BATCH
+    queries x P_MAIN partitions, its n_pad) beside the rise of
+    max_memory_allocated over one batch. Not a gate: the search's own
+    intermediates are not in the model."""
+    from repro_torch.api import SearchRequest
+    from repro_torch.core.search import SearchParams
+    from repro_torch.launch.ann_dryrun import batch_working_set
+
+    db = svc.backend.pdb.db
+    parts, n_pad = db.vectors.shape[:2]
+    p = SearchParams(ef=40, k=10).resolve(db.l0_nbrs.shape[-1])
+    model = batch_working_set(parts * BATCH, n_pad, p.cand_size, p.ef)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    svc.search(SearchRequest(queries[:BATCH], k=10, ef=40)).ids.cpu()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    log(f"[cost] (d) working set of one {BATCH}-query batch, P={parts}, "
+        f"n_pad {n_pad}: modeled {model} bytes, max_memory_allocated rose "
+        f"{rise} bytes: {model / rise:.4f} of it")
+    return {"model": model, "rise": rise}
+
+
+def cost_phase(csd_out: dict, svc, main_qps: float, queries,
+               tmp: str) -> dict:
+    t0 = time.perf_counter()
+    share = hbm_copy_share()
+    cal = {dt: calibrate_store(dt, o) for dt, o in csd_out.items()}
+    metrics = Path(tmp) / "cost-csd-float32.json"
+    metrics.write_text(json.dumps(csd_out["float32"]["window"]))
+    dry = dryrun_check(str(metrics), main_qps)
+    ws = working_set_check(svc, queries)
+    log(f"[cost] phase {time.perf_counter() - t0:.1f}s")
+    return {"copy_share": share, "calibration": cal, "dryrun": dry,
+            "working_set": ws}
 
 
 # ---------------------------------------------------------------------------
@@ -2841,24 +3038,43 @@ def profile_split(fn) -> dict:
     return out
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, traces: int = 3, tries: int = 6) -> float:
     """Device ms of one fn() call by torch.profiler: the durations of every
     kernel it launches, summed over `reps` calls after a warm-up and
     divided by reps. Unlike CUDA events around a call, host time between
     launches does not count, so a call whose host side outlasts its
-    kernels is timed by its kernels."""
+    kernels is timed by its kernels.
+
+    Late in a long process the profiler drops some or all device records
+    of one trace in two or three, and keeps the next one whole. So
+    `traces` traces are taken, and the one with the most records is kept
+    if it has some and a multiple of `reps` (fn launches the same kernels
+    each call); else more are taken, up to `tries` in all. If none is
+    whole, fn is timed by CUDA events around the `reps` calls (host time
+    included), and the log says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    best: list = []
+    for n in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        best = max(best, us, key=len)
+        if n >= traces and best and len(best) % reps == 0:
+            return sum(best) / 1e3 / reps
+    ms = events_ms(lambda: [fn() for _ in range(reps)]) / reps
+    log(f"[timing] device_ms: no whole trace in {tries} (at most "
+        f"{len(best)} device records over {reps} calls); timed by CUDA "
+        f"events around the {reps} calls instead (host time included): "
+        f"{ms:.4f} ms a call")
+    return ms
 
 
 def profiled_ms(make, calls: int, name: str, what: str,
@@ -3400,26 +3616,25 @@ def kernel_row(name, source, replaces, launches, err, timing, bound_by):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="kernel,main,quant,csd,serve,ingest,cluster,"
-                            "scan,lm",
-                    help="comma list of kernel,main,quant,csd,serve,ingest,"
-                         "cluster,scan,lm (card and build always run; serve "
-                         "needs csd, csd needs quant, quant, ingest and "
-                         "cluster need main)")
+                    default="kernel,main,quant,csd,cost,serve,ingest,"
+                            "cluster,scan,lm",
+                    help="comma list of kernel,main,quant,csd,cost,serve,"
+                         "ingest,cluster,scan,lm (card and build always "
+                         "run; serve and cost need csd, csd needs quant, "
+                         "quant, ingest and cluster need main)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this "
               "smoke test needs a CUDA device", file=sys.stderr)
         return 2
     t_all = time.perf_counter()
     phases = set(args.phases.split(","))
-    if "serve" in phases:
+    if phases & {"serve", "cost"}:
         phases.add("csd")
     if "csd" in phases:
         phases.add("quant")
@@ -3509,6 +3724,9 @@ def main(argv=None) -> int:
                     parts[dt] = SearchService.load(paths[dt], device=DEVICE)
                 csd_out = csd_phase(tmp, parts, queries)
                 del parts
+            # the cost model against the card, from 6b's windows
+            if "cost" in phases:
+                cost_phase(csd_out, svc, main_out["qps"], queries, tmp)
             # 6c. serve, through SearchServer
             if "serve" in phases:
                 served = serve_phase(svc, queries, main_out,

@@ -192,6 +192,17 @@ class DistributedSearch:
             all_ds = all_ds.gather(1, order)
         return all_ids, all_ds, calcs[:, None]
 
+    def gather_bytes(self, batch: int, num_partitions: int) -> int:
+        """Bytes the stage-1 gather moves onto the first slot's device for
+        one batch of `batch` queries: each working slot's pools of ids
+        (int32), distances (float32) and dist_calcs (int32), as `_collect`
+        moves them. The first slot's own pools count too. The port's
+        counterpart of the all-gather bytes the reference reads from its
+        compiled HLO."""
+        bl, per = batch // self.n_query, num_partitions // self.n_graph
+        per_slot = bl * per * self.p.k * (4 + 4) + bl * 4
+        return len(self.work) * per_slot
+
     def _collect(self, t, done):
         """A slot's result on the first slot's device, ordered after the
         slot's stream (and kept alive for the caller's)."""

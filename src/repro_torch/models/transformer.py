@@ -55,8 +55,8 @@ class ModelConfig:
     act: str = "silu"
     mla: Any = None           # layers.MLAConfig
     moe: Any = None           # moe.MoEConfig
-    mamba: Any = None         # not ported (ROADMAP.md Queue 1)
-    xlstm: Any = None         # not ported (ROADMAP.md Queue 1)
+    mamba: Any = None         # ssm.MambaConfig (the layer: ROADMAP.md Queue 1)
+    xlstm: Any = None         # ssm.XLSTMConfig (the layer: ROADMAP.md Queue 1)
     embed_inputs: bool = True
     num_output_heads: int = 1
     prefix_lm: bool = False   # bidirectional prefix (paligemma)

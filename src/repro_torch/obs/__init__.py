@@ -21,11 +21,14 @@ of the reference:
   * `to_prometheus` / `to_json` / `write_snapshot` / `PeriodicExporter`
                  — the snapshot writers (Prometheus text or JSON).
   * `latency_summary` — the one percentile helper (p50/p99/p999/mean).
-
-The reference's cost-model calibration (`obs/calibrate.py`) waits for the
-port of the cost model (ROADMAP.md).
+  * `calibrate` / `compare_terms` — fit the cost model's storage hit rate,
+                 bandwidth and per-superstep dispatch overhead from a
+                 snapshot and price the measured workload with the
+                 card's `launch.roofline.HW`.
 """
 
+from repro_torch.obs.calibrate import (Calibration, calibrate,
+                                       compare_terms, load_calibration)
 from repro_torch.obs.export import (PeriodicExporter, to_json,
                                     to_prometheus, write_snapshot)
 from repro_torch.obs.flight import FlightRecorder
@@ -49,4 +52,5 @@ __all__ = [
     "FlightRecorder",
     "latency_summary",
     "to_prometheus", "to_json", "write_snapshot", "PeriodicExporter",
+    "Calibration", "calibrate", "load_calibration", "compare_terms",
 ]

@@ -207,7 +207,7 @@ def test_package_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 49
+    assert int(out.stdout.strip()) >= 77
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
