@@ -283,6 +283,46 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                [16,384, 64] and [8, 64] beside the device time of one
                trivial kernel (a launch floor).
 
+  9. dense   — the GQA attention layer, after the lm phase's model is
+               freed: bf16 random weights drawn on the card from the seed.
+               (a) qwen3-14b at full width and depth (40 layers, d 5,120,
+               GQA 40:8, hd 128, qk_norm; 14.8 B parameters): B=8 prompts
+               of T=2,048 tokens, `prefill_step` into a 2,080-position
+               cache, 32 greedy `decode_step`s, the flash launch counters
+               set to 0 just before and read just after: 40 tensor-core
+               flash launches a prefill, 0 FMA, none a decode step;
+               finite logits; (c) prefill(256) + decode x3 against
+               prefill(259) and (d) the prefill with the plain
+               flash_attention against the kernel, in bf16 at full depth
+               under the architecture's BF16_GATES, then in float32 at
+               full width and depth 2 within 2e-3 with every greedy token
+               equal. (b) h2o-danube3-4b at full width and depth (GQA 32:8,
+               hd 120, window 4,096): B=2 prompts of 8,192 tokens (every
+               row past 4,096 cut by the window), its 4,096-slot ring
+               buffer, 32 decode steps from 8,192 (the ring wraps), 24
+               tensor-core launches a prefill; (c) across the window
+               (prefill(8,192) + decode x3 against prefill(8,195)), (d),
+               and both in float32 at depth 2. (c) musicgen-large as
+               configured (48 layers, MHA, int8 KV cache, embedded inputs,
+               four heads): [8, 2,048, 2,048] embeddings, 32 decode steps
+               on the int8 cache, 48 tensor-core launches a prefill,
+               logits [8, 1, 4, 2,048] finite, the largest difference
+               from the same run on the exact cache printed, the
+               dequantization's device time in a step; in float32 at depth
+               2 the int8-cache decode within the reference's bar (0.05 x
+               max |logit| + 0.1) and (c), (d) within 2e-3. (d) width
+               checks in float32 at full width, B=2, T=512, three decode
+               steps, (c) and (d) within 2e-3: paligemma-3b at depth 2
+               (hd 256, MQA 8:1, prefix 256; (d) also at prefixes 0 and
+               512), granite-3-8b and minitron-8b at depth 2, dbrx-132b at
+               depth 1 (its router through the topk kernel). Then the
+               flash kernels against their plain version at these paths'
+               shapes (and a case whose every row sees no key: zeros),
+               and the tensor-core kernel timed at qwen3's and danube's
+               prefill shapes beside the FMA kernel, the plain version,
+               scaled_dot_product_attention with enable_gqa (timed only)
+               and its bound; danube's also without its window.
+
 Each serving path prints QPS and p50/p99 per 256-query batch. The line
 before the last is {"kernels": [...]} with each kernel's launches on its
 path, error, times and bound; the last line is {"ok": true, "device":
@@ -371,6 +411,32 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-6)}
 # where the same checks differ by 1e-5: the reference's own 2e-3
 # (tests/test_models.py), every greedy token equal.
 LM_TOL_BF16, LM_GREEDY_SHARE, LM_TOL_F32, LM_F32_PERIODS = 0.18, 0.25, 2e-3, 2
+# the dense phase: qwen3-14b's main path at full width and depth (B prompts
+# of T tokens, a cache of S positions, greedy decode steps), h2o-danube3-4b
+# across its 4,096 window (B prompts of T = twice the window, decode steps
+# past it), musicgen-large on its int8 cache (B x T embeddings); float32
+# checks at full width and depth DENSE_F32_DEPTH; the width checks (arch,
+# depth, the prefix lengths of (c) and (d)) at WIDTH_B x WIDTH_T, float32
+QWEN_ARCH, QWEN_B, QWEN_T, QWEN_S, QWEN_STEPS = "qwen3_14b", 8, 2048, 2080, 32
+SWA_ARCH, SWA_B, SWA_T, SWA_STEPS = "h2o_danube3_4b", 2, 8192, 32
+MUSIC_ARCH, MUSIC_B, MUSIC_T, MUSIC_STEPS = "musicgen_large", 8, 2048, 32
+DENSE_F32_DEPTH, WIDTH_B, WIDTH_T = 2, 2, 512
+WIDTH_CHECKS = (("paligemma_3b", 2, (256, 0, 512)),
+                ("granite_3_8b", 2, (None,)), ("minitron_8b", 2, (None,)),
+                ("dbrx_132b", 1, (None,)))
+# bf16 gates of (c) and (d) at full depth: (RMS |d| / RMS |logit| at most,
+# share of rows whose greedy token is equal at least), by architecture.
+# DeepSeek's from the readings above; qwen3's and danube's from
+# scripts/torch_lm_gates.py --arch on seeds 0-7 (PERF.md §6): qwen3
+# 0.0149-0.0192 without a fault, 0.1756 at least with one (non-causal,
+# decode one position early, KV head h % KV); danube 0.0139-0.0175
+# without, 0.0442 at least with those three, but 0.0198-0.0283 with its
+# window one key too wide, which no bf16 gate here separates (the flash
+# checks, where |out| is small against one bf16 spacing, and the float32
+# checks hold the window). The greedy share separated nothing (0.5-1.0
+# of the rows without a fault, up to 0.875 with one).
+BF16_GATES = {LM_ARCH: (LM_TOL_BF16, LM_GREEDY_SHARE),
+              QWEN_ARCH: (0.06, 0.25), SWA_ARCH: (0.028, 0.25)}
 
 
 def check(cond, msg: str) -> None:
@@ -3305,10 +3371,12 @@ def lm_timing(router_neg, path_shape, g, reps: int = 5) -> dict:
     return out
 
 
-def lm_invariant(model, cfg, toks) -> list:
+def lm_invariant(model, cfg, toks, prefix_len=None) -> list:
     """The reference's invariant (tests/test_models.py): prefill(T) then
-    decode(T..T+2) against a prefill over T+3 tokens at those positions;
-    returns the (got, want) logits pairs [B, V] of the four positions."""
+    decode(T..T+2) against a prefill over T+3 tokens (or embeddings) at
+    those positions, both with the prefix-LM's `prefix_len`; returns the
+    (got, want) logits pairs [B, V] (or [B, heads, V]) of the four
+    positions."""
     from repro_torch.models.model import decode_step, prefill_step
     from repro_torch.models.transformer import (
         compute_logits,
@@ -3316,13 +3384,15 @@ def lm_invariant(model, cfg, toks) -> list:
         init_cache,
     )
 
-    b, n = toks.shape
+    b, n = toks.shape[:2]
     t = n - 3
     with torch.no_grad():
-        hidden, _, _ = forward(model, cfg, toks, mode="prefill")
+        hidden, _, _ = forward(model, cfg, toks, mode="prefill",
+                               prefix_len=prefix_len)
         full = compute_logits(model, cfg, hidden)
     cache = init_cache(cfg, b, n, dtype=cfg.param_dtype, device=DEVICE)
-    got, cache = prefill_step(model, {"inputs": toks[:, :t]}, cache, cfg)
+    got, cache = prefill_step(model, {"inputs": toks[:, :t],
+                                      "prefix_len": prefix_len}, cache, cfg)
     pairs = [(got[:, 0], full[:, t - 1])]
     for pos in range(t, n):
         got, cache = decode_step(model, toks[:, pos:pos + 1], cache, pos, cfg)
@@ -3331,11 +3401,13 @@ def lm_invariant(model, cfg, toks) -> list:
 
 
 def logit_gap(pairs, V: int) -> dict:
-    """(got, want) logits pairs [B, V]: the max |d| and max |want|, the
+    """(got, want) logits pairs [..., V] (a row per leading index: [B, V],
+    or [B, heads, V] with a row per head): the max |d| and max |want|, the
     RMS of d over the RMS of want, the rows whose greedy token is equal
     (`same` of `n`), and (wanted top-2 margin, row max |d|) of each row
     whose greedy token differs."""
-    pairs = [(a[:, :V], b[:, :V]) for a, b in pairs]
+    pairs = [(a.reshape(-1, a.shape[-1])[:, :V],
+              b.reshape(-1, b.shape[-1])[:, :V]) for a, b in pairs]
     d2 = sum(float((a - b).double().square().sum()) for a, b in pairs)
     w2 = sum(float(b.double().square().sum()) for _, b in pairs)
     gap = {"err": max(float((a - b).abs().max()) for a, b in pairs),
@@ -3353,23 +3425,26 @@ def logit_gap(pairs, V: int) -> dict:
     return gap
 
 
-def bf16_gate(gap: dict) -> bool:
-    """The bf16 gate: RMS |d| within LM_TOL_BF16 x RMS |logit|, the greedy
-    token equal on LM_GREEDY_SHARE of the rows, and a row's greedy token
-    differing only where the wanted top-2 margin is within twice that
-    row's max |d|, where the difference itself can swap the two."""
-    return (gap["rms"] <= LM_TOL_BF16
-            and gap["same"] >= LM_GREEDY_SHARE * gap["n"]
+def bf16_gate(gap: dict, arch: str = LM_ARCH) -> bool:
+    """The bf16 gate of `arch` (BF16_GATES): RMS |d| within its tolerance
+    x RMS |logit|, the greedy token equal on its share of the rows, and a
+    row's greedy token differing only where the wanted top-2 margin is
+    within twice that row's max |d|, where the difference itself can swap
+    the two."""
+    tol, share = BF16_GATES[arch]
+    return (gap["rms"] <= tol and gap["same"] >= share * gap["n"]
             and all(m <= 2 * r for m, r in gap["flips"]))
 
 
-def compare_logits(what: str, pairs, V: int, tol) -> dict:
-    """Log and gate (got, want) logits pairs [B, V]: bf16 (`tol` None) by
-    `bf16_gate`; float32 |d| <= tol + tol |want| and every greedy token
-    equal. Returns the `logit_gap`."""
+def compare_logits(what: str, pairs, V: int, tol, gate=None) -> dict:
+    """Log and gate (got, want) logits pairs [..., V]: bf16 (`tol` None) by
+    `gate` (default `bf16_gate`); float32 |d| <= tol + tol |want| and
+    every greedy token equal. Returns the `logit_gap`."""
     gap = logit_gap(pairs, V)
-    pairs = [(a[:, :V], b[:, :V]) for a, b in pairs]
-    log(f"[lm] {what}: max |d logits| {gap['err']:.6f} (max |logit| "
+    pairs = [(a.reshape(-1, a.shape[-1])[:, :V],
+              b.reshape(-1, b.shape[-1])[:, :V]) for a, b in pairs]
+    tag = "" if what.startswith("[") else "[lm] "
+    log(f"{tag}{what}: max |d logits| {gap['err']:.6f} (max |logit| "
         f"{gap['scale']:.3f}; ratio {gap['err'] / gap['scale']:.4f}), RMS "
         f"|d| / RMS |logit| {gap['rms']:.4f}, greedy token equal on "
         f"{gap['same']}/{gap['n']}"
@@ -3377,9 +3452,9 @@ def compare_logits(what: str, pairs, V: int, tol) -> dict:
            + ", ".join(f"({m:.4f}, {r:.4f})" for m, r in gap["flips"])
            if gap["flips"] else ""))
     if tol is None:
-        check(bf16_gate(gap), f"{what}: beyond {LM_TOL_BF16} x RMS |logit|, "
-              f"greedy tokens equal on {gap['same']}/{gap['n']} (at least "
-              f"{LM_GREEDY_SHARE} wanted), or a differing greedy token "
+        check((gate or bf16_gate)(gap), f"{what}: beyond its bf16 gate (RMS "
+              f"ratio {gap['rms']:.4f}), greedy tokens equal on "
+              f"{gap['same']}/{gap['n']}, or a differing greedy token "
               f"where its margin exceeds twice the row's difference: "
               f"{gap['flips']}")
     else:
@@ -3400,13 +3475,16 @@ def no_drop_config(cfg):
         cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
 
 
-def prefill_last(model, cfg, prompts, **swap):
-    """The last position's logits [B, V] of a prefill over `prompts` (no
-    cache) with ops swapped as `swapped_ops` takes them."""
+def prefill_last(model, cfg, prompts, prefix_len=None, **swap):
+    """The last position's logits [B, V] (or [B, heads, V]) of a prefill
+    over `prompts` (no cache) with ops swapped as `swapped_ops` takes
+    them."""
     from repro_torch.models.model import prefill_step
 
     with swapped_ops(**swap):
-        return prefill_step(model, {"inputs": prompts}, None, cfg)[0][:, 0]
+        return prefill_step(model, {"inputs": prompts,
+                                    "prefix_len": prefix_len}, None,
+                            cfg)[0][:, 0]
 
 
 def lm_bf16_pairs(model, cfg, prompts, **swap) -> dict:
@@ -3602,6 +3680,472 @@ def lm_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 9. dense: the GQA attention layer and the seven attention architectures
+# ---------------------------------------------------------------------------
+
+
+def dense_config(arch: str, **replace):
+    """`arch` as the port's registry gives it, fields replaced."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), **replace)
+
+
+def dense_inputs(cfg, b: int, n: int, g):
+    """b x n seeded inputs on the card: token ids, or N(0, 1) embeddings
+    in the parameters' dtype where the config takes embeddings."""
+    if cfg.embed_inputs:
+        return torch.randint(0, cfg.vocab_size, (b, n), generator=g,
+                             device=DEVICE)
+    return torch.randn((b, n, cfg.d_model), generator=g, device=DEVICE).to(
+        cfg.param_dtype)
+
+
+def flash_counts() -> tuple:
+    from repro_torch.kernels import attention
+
+    return attention.TC_LAUNCHES, attention.FMA_LAUNCHES
+
+
+def dense_main(model, cfg, prompts, steps: int, s_max: int, what: str,
+               step_inputs=None) -> dict:
+    """The main path of one architecture: a warm-up prefill and decode
+    step, then, with the flash launch counters set to 0 just before, a
+    prefill_step of `prompts` into a cache of s_max positions and `steps`
+    decode_steps (greedy tokens, or `step_inputs` embeddings [B, steps,
+    d]), read just after. Checks the launches (a tensor-core flash launch
+    a layer a prefill, no FMA one, none a decode step) and finite logits;
+    logs the times. Returns the times, launches, the decode logits of
+    every step and the cache."""
+    from repro_torch.kernels import attention
+    from repro_torch.models.model import decode_step, prefill_step
+    from repro_torch.models.transformer import init_cache
+
+    b, t = prompts.shape[:2]
+    V = cfg.vocab_size
+    n_attn = sum(s.kind == "attn" for s in cfg.all_specs())
+
+    def next_input(logits, i):
+        if step_inputs is not None:
+            return step_inputs[:, i:i + 1]
+        return logits[:, -1, :V].argmax(-1)[:, None]
+
+    cache = init_cache(cfg, b, s_max, dtype=cfg.param_dtype, device=DEVICE)
+    t0 = time.perf_counter()
+    warm, cache = prefill_step(model, {"inputs": prompts}, cache, cfg)
+    decode_step(model, next_input(warm, 0), cache, t, cfg)
+    torch.cuda.synchronize()
+    log(f"[dense] {what}: warm-up prefill and decode step "
+        f"{time.perf_counter() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    attention.TC_LAUNCHES = attention.FMA_LAUNCHES = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(model, {"inputs": prompts}, cache, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    per_prefill = flash_counts()
+    x = next_input(logits, 0)
+    steps_ms, outs, per_step = [], [], set()
+    for i in range(steps):
+        before = flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = decode_step(model, x, cache, t + i, cfg)
+        x = next_input(out, i + 1) if i + 1 < steps else None
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        per_step.add(tuple(a - c for a, c in zip(flash_counts(), before)))
+    launches = flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(per_prefill == (n_attn, 0),
+          f"{what}: a prefill launched (flash tensor-core, flash FMA) "
+          f"{per_prefill}, expected ({n_attn}, 0)")
+    check(per_step == {(0, 0)}, f"{what}: a decode step launched flash "
+          f"kernels {sorted(per_step)}, expected none")
+    heads = () if cfg.num_output_heads == 1 else (cfg.num_output_heads,)
+    check(logits.shape == (b, 1, *heads, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :V]).all())
+          and all(bool(torch.isfinite(o[..., :V]).all()) for o in outs),
+          f"{what}: prefill / decode logits not finite or of the wrong "
+          f"shape {tuple(logits.shape)}")
+    st = np.array(steps_ms)
+    log(f"[dense] {what}: prefill {b} x {t}: {prefill_ms:.2f} ms "
+        f"({b * t / prefill_ms * 1e3:.1f} tokens/s); flash launches "
+        f"{per_prefill[0]} tensor-core, {per_prefill[1]} FMA")
+    log(f"[dense] {what}: decode {steps} steps of {b} at positions "
+        f"{t}..{t + steps - 1} (cache {cache_positions(cfg, s_max)}): p50 "
+        f"{np.percentile(st, 50):.3f} ms, p99 {np.percentile(st, 99):.3f} "
+        f"ms a step, {b / np.percentile(st, 50) * 1e3:.1f} tokens/s at "
+        f"p50; peak memory {peak / 2**30:.2f} GiB")
+    return {"prefill_ms": prefill_ms, "steps_ms": steps_ms,
+            "launches": launches[0], "fma_launches": launches[1],
+            "logits": logits, "outs": outs, "cache": cache, "peak": peak}
+
+
+def cache_positions(cfg, s_max: int) -> str:
+    spec = cfg.pattern[0]
+    if spec.window:
+        return (f"a ring buffer of {min(spec.window, s_max)} slots, "
+                f"slot = position % {min(spec.window, s_max)}")
+    return f"{s_max} positions{', int8' if cfg.kv_quant else ''}"
+
+
+def dense_bf16_pairs(model, cfg, main, c_toks, **swap) -> dict:
+    """The logits pairs of (c) and (d) in bf16 at full depth: (c)
+    prefill(n) + decode x3 against prefill(n + 3) over `c_toks` [2, n +
+    3]; (d) the prefill of `main` with the plain flash_attention against
+    the kernel. `swap` (ops as `swapped_ops` takes them) runs the whole of
+    (c) and replaces the plain version in (d), to put a fault in."""
+    from repro_torch.kernels.attention import flash_attention_ref
+
+    n = c_toks.shape[1] - 3
+    with swapped_ops(**swap):
+        c = lm_invariant(model, cfg, c_toks)
+    d = [(prefill_last(model, cfg, main,
+                       **(swap or {"flash_fn": flash_attention_ref})),
+          prefill_last(model, cfg, main))]
+    return {f"(c) bf16, full depth: prefill({n}) + decode x3 against "
+            f"prefill({n + 3}), B=2": c,
+            f"(d) bf16, full depth: the {main.shape[0]} x {main.shape[1]} "
+            f"prefill with the plain flash_attention against the kernel": d}
+
+
+def dense_bf16_checks(model, cfg, main, c_toks, arch: str) -> None:
+    """(c) and (d) of `dense_bf16_pairs`, gated by the bf16 gate of
+    `arch`."""
+    for what, pairs in dense_bf16_pairs(model, cfg, main, c_toks).items():
+        compare_logits(f"[dense] {cfg.name} {what}", pairs, cfg.vocab_size,
+                       None, lambda gap: bf16_gate(gap, arch))
+
+
+def dense_f32_checks(arch: str, depth: int, b: int, t: int, prefixes, g,
+                     quant_gate: bool = False, **replace) -> float:
+    """(c) and (d) in float32 at full width and `depth` layers, b x t, at
+    each prefix length of `prefixes` ((c) at the first only), within the
+    reference's LM_TOL_F32 with every greedy token equal; MoE with the
+    capacity raised so that no token is dropped and the router through
+    the topk kernel, (d) swapping its plain version too. With
+    `quant_gate`, the int8-cache decode against the exact cache's at the
+    reference's bar (tests/test_models.py): max |d| < 0.05 x max |logit|
+    + 0.1. Returns the largest |d| of (d)."""
+    import dataclasses
+
+    from repro_torch.kernels.attention import flash_attention_ref
+    from repro_torch.kernels.topk import topk_ref
+    from repro_torch.models.transformer import init_params
+
+    cfg = dense_config(arch, num_periods=depth, param_dtype=torch.float32,
+                       **replace)
+    if cfg.moe is not None:
+        cfg = no_drop_config(dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, router_use_kernel=True)))
+    V = cfg.vocab_size
+    model = init_params(cfg, device=DEVICE, generator=g)
+    x = dense_inputs(cfg, b, t + 3, g)
+    what = f"{cfg.name} float32, depth {depth}"
+    compare_logits(f"[dense] {what} (c): prefill({t}) + decode x3 against "
+                   f"prefill({t + 3}), B={b}"
+                   + (f", prefix {prefixes[0]}" if prefixes[0] is not None
+                      else ""),
+                   lm_invariant(model, cfg, x, prefixes[0]), V, LM_TOL_F32)
+    err = 0.0
+    for prefix in prefixes:
+        plain = prefill_last(model, cfg, x[:, :t], prefix,
+                             flash_fn=flash_attention_ref, topk_fn=topk_ref)
+        gap = compare_logits(
+            f"[dense] {what} (d): prefill({t})"
+            + (f", prefix {prefix}" if prefix is not None else "")
+            + " with the plain flash_attention"
+            + (" and topk" if cfg.moe is not None else "")
+            + " against the kernels",
+            [(plain, prefill_last(model, cfg, x[:, :t], prefix))], V,
+            LM_TOL_F32)
+        err = max(err, gap["err"])
+    if quant_gate:
+        outs = {}
+        for name, c in (("exact", dataclasses.replace(cfg, kv_quant=False)),
+                        ("int8", dataclasses.replace(cfg, kv_quant=True))):
+            pairs = lm_invariant(model, c, x)
+            outs[name] = torch.stack([p for p, _ in pairs])
+        d = float((outs["exact"] - outs["int8"])[..., :V].abs().max())
+        scale = float(outs["exact"][..., :V].abs().max())
+        log(f"[dense] {what}: the int8-cache prefill + decode x3 against "
+            f"the exact cache's: max |d| {d:.5f}, max |logit| {scale:.4f}, "
+            f"bar 0.05 x max |logit| + 0.1 = {0.05 * scale + 0.1:.4f}")
+        check(0 < d < 0.05 * scale + 0.1, f"{what}: int8-cache decode beyond "
+              f"the reference's bar: {d} against {0.05 * scale + 0.1}")
+    del model, x
+    torch.cuda.empty_cache()
+    return err
+
+
+def dense_flash_checks(g) -> float:
+    """The flash kernels within FLASH_TOL of their plain version at the
+    dense paths' shapes, each on the kernel `flash_attention_cuda` picks:
+    qwen3's [320, 2048, 128] over [64, 2048, 128] causal and danube's
+    [64, 8192, 120] over [16, 8192, 120] with its 4,096 window (tensor
+    cores; and in float32 on FMAs), musicgen's [256, 2048, 64];
+    paligemma's hd 256 with G = 8 and a prefix of 256 in float32 (FMA) and
+    bf16; a prefill continuation with q_offset; and a case whose every row
+    sees no key (window 4 at q_offset 40 over 16 keys: zeros). Returns the
+    largest |kernel - plain|."""
+    from repro_torch.kernels import attention
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [((320, 64, 2048, 2048, 128), bf, {}, "tc"),
+             ((64, 16, 8192, 8192, 120), bf, {"window": 4096}, "tc"),
+             ((64, 16, 8192, 8192, 120), f32, {"window": 4096}, "fma"),
+             ((256, 256, 2048, 2048, 64), bf, {}, "tc"),
+             ((16, 2, 512, 512, 256), f32, {"prefix_len": 256}, "fma"),
+             ((16, 2, 512, 512, 256), bf, {"prefix_len": 256}, "tc"),
+             ((40, 8, 300, 300, 128), bf, {"q_offset": 1000, "window": 64},
+              "tc"),
+             ((10, 2, 16, 16, 128), bf, {"window": 4, "q_offset": 40}, "tc"),
+             ((10, 2, 16, 16, 128), f32, {"window": 4, "q_offset": 40},
+              "fma")]
+    worst = 0.0
+    for (bh, bkv, t, s, hd), dtype, kw, kernel in cases:
+        q = torch.randn((bh, t, hd), generator=g, device=DEVICE).to(dtype)
+        k, v = (torch.randn((bkv, s, hd), generator=g, device=DEVICE).to(
+            dtype) for _ in range(2))
+        before = flash_counts()
+        got = attention.flash_attention_cuda(q, k, v, **kw).float()
+        took = "tc" if flash_counts()[0] > before[0] else "fma"
+        check(took == kernel, f"flash_attention at {[bh, bkv, t, s, hd]} "
+              f"{dtype} {kw} took the {took} kernel, expected {kernel}")
+        want = attention.flash_attention_ref(q, k, v, **kw).float()
+        rel, absol = FLASH_TOL[dtype]
+        tol = rel * torch.maximum(got.abs(), want.abs()) + absol
+        d = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= tol).all()),
+              f"flash_attention {kernel} kernel beyond the tolerance at "
+              f"{[bh, bkv, t, s, hd]} {dtype} {kw}: max {d}")
+        if kw.get("q_offset") == 40:
+            check(not bool(got.any()), "flash_attention: rows with no live "
+                  "key are not 0")
+        worst = max(worst, d)
+        log(f"[dense] flash_attention, {kernel} kernel, q {[bh, t, hd]} over "
+            f"k, v {[bkv, s, hd]} {dtype} {kw or 'causal'}: within {rel:g} "
+            f"x |out| + {absol:g} of its plain version (max |d| {d:.3g})")
+        del q, k, v, got, want, tol
+    return worst
+
+
+def live_pairs(t: int, window: int) -> int:
+    """(query, key) pairs a causal prefill of t from position 0 scores."""
+    if not window or window >= t:
+        return t * (t + 1) // 2
+    return window * (window + 1) // 2 + (t - window) * window
+
+
+def dense_timing(g, reps: int = 5) -> dict:
+    """The tensor-core kernel at qwen3's and danube's prefill shapes (CUDA
+    events, median of `reps`), beside the FMA kernel on the same inputs,
+    the plain version, one library call (scaled_dot_product_attention with
+    enable_gqa: causal, or danube's window as a boolean mask; timed only)
+    and the bound: q.k^T and three bf16 pieces of P.V over the pairs the
+    mask leaves, at the bf16 tensor cores' rate, or the bytes of q, k, v
+    and out. Danube's kernel also without its window."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention
+
+    out = {}
+    for name, (b, h, kvh, t, hd, window) in (
+            ("qwen3", (QWEN_B, 40, 8, QWEN_T, 128, 0)),
+            ("danube", (SWA_B, 32, 8, SWA_T, 120, 4096))):
+        q = torch.randn((b * h, t, hd), generator=g, device=DEVICE).to(
+            torch.bfloat16)
+        k, v = (torch.randn((b * kvh, t, hd), generator=g,
+                            device=DEVICE).to(torch.bfloat16)
+                for _ in range(2))
+        q4, k4, v4 = (x.view(b, -1, t, hd) for x in (q, k, v))
+        kw = {"window": window}
+        if window:
+            rows = torch.arange(t, device=DEVICE)
+            mask = (rows[None, :] <= rows[:, None]) & (
+                rows[None, :] > rows[:, None] - window)
+            lib = {"attn_mask": mask}
+        else:
+            lib = {"is_causal": True}
+        r = {"ms": median_ms(lambda: attention.flash_attention_tc_cuda(
+                 q, k, v, **kw), reps),
+             "fma_ms": median_ms(lambda: attention.flash_attention_fma_cuda(
+                 q, k, v, **kw), reps),
+             "plain_ms": median_ms(lambda: attention.flash_attention_ref(
+                 q, k, v, **kw), reps),
+             "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                 q4, k4, v4, enable_gqa=True, **lib), reps)}
+        if window:
+            r["full_ms"] = median_ms(
+                lambda: attention.flash_attention_tc_cuda(q, k, v), reps)
+        pairs = live_pairs(t, window)
+        qk = 2.0 * b * h * hd * pairs
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        r["bound_ms"], r["bound_by"] = bound(nbytes, 4 * qk, BF16_FLOPS)
+        r["shape"] = f"q [{b * h}, {t}, {hd}], k, v [{b * kvh}, {t}, {hd}]"
+        log(f"[dense] timing flash_attention {r['shape']} bf16 causal"
+            + (f", window {window}" if window else "")
+            + f" (one {name} prefill layer), CUDA events: tensor-core kernel "
+            f"{r['ms']:.4f} ms, FP32-FMA kernel {r['fma_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library (scaled_dot_product_attention"
+            f", enable_gqa{', a boolean mask' if window else ''}) "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {qk / 1e9:.1f} GFLOP q.k^T + 3 x "
+            f"{qk / 1e9:.1f} GFLOP P.V over {pairs:,} pairs a head at "
+            f"989 TFLOP/s; {nbytes / 1e6:.0f} MB "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)"
+            + (f"; without the window {r['full_ms']:.4f} ms (window / full "
+               f"{r['ms'] / r['full_ms']:.3f}; pairs "
+               f"{pairs / live_pairs(t, 0):.3f})" if window else ""))
+        out[name] = r
+        del q, k, v, q4, k4, v4, lib
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_phase(seed: int) -> dict:
+    """9. qwen3-14b's main path, h2o-danube3-4b across its window,
+    musicgen-large on its int8 cache, and the width checks."""
+    from repro_torch.models.model import decode_step
+    from repro_torch.models.transformer import init_params
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    launches, t_phase = 0, time.perf_counter()
+
+    def draw(cfg):
+        t0 = time.perf_counter()
+        model = init_params(cfg, device=dev, generator=g)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in model.parameters())
+        log(f"[dense] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_heads}:{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n / 1e9:.3f} B parameters "
+            f"({n * 2 / 1e9:.2f} GB bf16) drawn on the card in "
+            f"{time.perf_counter() - t0:.1f}s")
+        return model
+
+    # (a) qwen3-14b at full width and depth: the slice's main path
+    cfg = dense_config(QWEN_ARCH)
+    model = draw(cfg)
+    prompts = dense_inputs(cfg, QWEN_B, QWEN_T, g)
+    run = dense_main(model, cfg, prompts, QWEN_STEPS, QWEN_S, cfg.name)
+    launches += run["launches"]
+    qwen = {"prefill_ms": run["prefill_ms"], "steps_ms": run["steps_ms"]}
+    del run
+    dense_bf16_checks(model, cfg, prompts, prompts[:2, :LM_C_T + 3],
+                      QWEN_ARCH)
+    del model, prompts
+    torch.cuda.empty_cache()
+    dense_f32_checks(QWEN_ARCH, DENSE_F32_DEPTH, 2, LM_C_T, (None,), g)
+
+    # (b) h2o-danube3-4b across its window: a prefill of twice the window,
+    # decode past it (the ring wraps), (c) across the window
+    cfg = dense_config(SWA_ARCH)
+    window = cfg.pattern[0].window
+    model = draw(cfg)
+    prompts = dense_inputs(cfg, SWA_B, SWA_T + 3, g)
+    run = dense_main(model, cfg, prompts[:, :SWA_T], SWA_STEPS,
+                     SWA_T + SWA_STEPS, cfg.name)
+    ring = run["cache"]["periods"]["0"]["k"].shape[2]
+    check(ring == window < SWA_T, f"{cfg.name}: a ring buffer of {ring} "
+          f"slots, expected the window {window} < T {SWA_T}")
+    log(f"[dense] {cfg.name}: every row past {window} of the {SWA_T}-token "
+        f"prefill is cut by the window; decode writes slots "
+        f"{SWA_T % ring}..{(SWA_T + SWA_STEPS - 1) % ring} of {ring} (the "
+        f"ring wrapped at position {ring})")
+    launches += run["launches"]
+    swa = {"prefill_ms": run["prefill_ms"], "steps_ms": run["steps_ms"]}
+    del run
+    dense_bf16_checks(model, cfg, prompts[:, :SWA_T], prompts, SWA_ARCH)
+    del model, prompts
+    torch.cuda.empty_cache()
+    dense_f32_checks(SWA_ARCH, DENSE_F32_DEPTH, 2, SWA_T, (None,), g)
+
+    # (c) musicgen-large as configured: the int8 cache, embedded inputs,
+    # four output heads; against the same run on the exact cache (logged)
+    cfg = dense_config(MUSIC_ARCH)
+    model = draw(cfg)
+    emb = dense_inputs(cfg, MUSIC_B, MUSIC_T + MUSIC_STEPS, g)
+    runs = {}
+    for name, c in (("int8", cfg), ("exact", dense_config(MUSIC_ARCH,
+                                                          kv_quant=False))):
+        runs[name] = dense_main(model, c, emb[:, :MUSIC_T], MUSIC_STEPS,
+                                MUSIC_T + MUSIC_STEPS,
+                                f"{cfg.name} ({name} cache)",
+                                step_inputs=emb[:, MUSIC_T:])
+        if name == "int8":
+            # one more step at the cache's last position
+            split = profile_ranges(lambda: decode_step(
+                model, emb[:, -1:], runs["int8"]["cache"],
+                emb.shape[1] - 1, c),
+                ("attn.dequant_kv", "attn.decode_attention"))
+            log(f"[dense] {cfg.name}: one int8-cache decode step (B="
+                f"{MUSIC_B}, {MUSIC_T + MUSIC_STEPS} positions) by "
+                f"torch.profiler: dequantizing the whole cache "
+                f"{split['attn.dequant_kv']:.3f} ms, the decode attention "
+                f"{split['attn.decode_attention']:.3f} ms, device busy "
+                f"{split['device_ms']:.3f} of {split['wall_ms']:.3f} ms wall")
+        runs[name].pop("cache")
+    launches += runs["int8"]["launches"]
+    d = max(float((a - b)[..., :cfg.vocab_size].abs().max())
+            for a, b in zip(runs["int8"]["outs"], runs["exact"]["outs"]))
+    scale = max(float(b[..., :cfg.vocab_size].abs().max())
+                for b in runs["exact"]["outs"])
+    log(f"[dense] {cfg.name} bf16, full depth: {MUSIC_STEPS} decode steps on "
+        f"the int8 cache against the exact cache: max |d logits| {d:.4f}, "
+        f"max |logit| {scale:.4f} (ratio {d / scale:.4f}; printed, not "
+        f"gated: the reference's bar is read on 2 float32 layers)")
+    music = {"prefill_ms": runs["int8"]["prefill_ms"],
+             "steps_ms": runs["int8"]["steps_ms"],
+             "exact_steps_ms": runs["exact"]["steps_ms"]}
+    del model, emb, runs
+    torch.cuda.empty_cache()
+    # (c) within 2e-3 on the exact cache; the int8 cache at the
+    # reference's bar against it
+    dense_f32_checks(MUSIC_ARCH, DENSE_F32_DEPTH, 2, LM_C_T, (None,), g,
+                     quant_gate=True, kv_quant=False)
+
+    # (d) the width checks, float32 at full width
+    for arch, depth, prefixes in WIDTH_CHECKS:
+        dense_f32_checks(arch, depth, WIDTH_B, WIDTH_T, prefixes, g)
+
+    err = dense_flash_checks(g)
+    timing = dense_timing(g)
+    log(f"[dense] phase {time.perf_counter() - t_phase:.1f}s")
+    return {"launches": launches, "err": err, "timing": timing,
+            "qwen": qwen, "swa": swa, "music": music}
+
+
+def profile_ranges(fn, names) -> dict:
+    """Device ms of the `record_function` ranges `names` in one fn() call
+    by torch.profiler, the device busy ms and the wall ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    out = {"wall_ms": wall, "device_ms": sum(
+        e.time_range.elapsed_us() for e in events
+        if e.device_type == DeviceType.CUDA and e.name not in names) / 1e3}
+    for name in names:
+        out[name] = sum(e.device_time_total for e in events
+                        if e.name == name
+                        and e.device_type == DeviceType.CPU) / 1e3
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_row(name, source, replaces, launches, err, timing, bound_by):
@@ -3617,9 +4161,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernel,main,quant,csd,cost,serve,ingest,"
-                            "cluster,scan,lm",
+                            "cluster,scan,lm,dense",
                     help="comma list of kernel,main,quant,csd,cost,serve,"
-                         "ingest,cluster,scan,lm (card and build always "
+                         "ingest,cluster,scan,lm,dense (card and build always "
                          "run; serve and cost need csd, csd needs quant, "
                          "quant, ingest and cluster need main)")
     args = ap.parse_args(argv)
@@ -3747,6 +4291,11 @@ def main(argv=None) -> int:
     if "lm" in phases:
         torch.cuda.empty_cache()
         lm = lm_phase(seed=0)
+    # 9. dense, after the DeepSeek model and cache are freed
+    dense = None
+    if "dense" in phases:
+        torch.cuda.empty_cache()
+        dense = dense_phase(seed=0)
 
     csrc = "src/repro_torch/kernels/csrc/"
     trav = "src/repro/kernels/traversal.py:234"
@@ -3811,9 +4360,17 @@ def main(argv=None) -> int:
              "src/repro/kernels/attention.py:79", "operations")):
         r = lm[name] if lm else None
         t = r and r["timing"]
-        rows.append(kernel_row(name, csrc + source, replaces,
-                               r["launches"] if r else 0, r and r["err"], t,
-                               t["bound_by"] if t else bound_by))
+        launches, err = (r["launches"], r["err"]) if r else (0, None)
+        if dense and name.startswith("flash"):
+            # the dense phase's flash launches (all on the tensor cores)
+            # and checks; its qwen3 timing where the lm phase did not run
+            tc = name == "flash_attention"
+            launches += dense["launches"] if tc else 0
+            err = max(err or 0.0, dense["err"])
+            q = dense["timing"]["qwen3"]
+            t = t or dict(q, ms=q["ms"] if tc else q["fma_ms"])
+        rows.append(kernel_row(name, csrc + source, replaces, launches, err,
+                               t, t["bound_by"] if t else bound_by))
     log(f"[done] {time.perf_counter() - t_all:.1f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -1,14 +1,24 @@
 """Architecture registry of the port: get_config / reduced_config for the
-architectures it runs (the reference's `repro.configs`). Each module
-defines CONFIG (full size) and REDUCED (CPU tests), field for field the
-reference's; the other architectures are queued (ROADMAP.md Queue 1).
+architectures it runs (the reference's `repro.configs`), in the
+reference's order. Each module defines CONFIG (full size) and REDUCED
+(CPU tests), field for field the reference's; the recurrent
+architectures (jamba, xlstm) are queued (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["deepseek_v2_lite_16b"]
+ARCHS = [
+    "h2o_danube3_4b",
+    "qwen3_14b",
+    "minitron_8b",
+    "granite_3_8b",
+    "deepseek_v2_lite_16b",
+    "dbrx_132b",
+    "paligemma_3b",
+    "musicgen_large",
+]
 
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

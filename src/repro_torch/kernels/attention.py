@@ -1,22 +1,33 @@
 """Flash attention over flattened heads (the reference's
-`flash_attention_pallas`, the Pallas twin of `models/layers.py`'s
+`flash_attention_pallas` and the mask of `models/layers.py`'s
 `blockwise_attn`): the plain PyTorch version and the wrappers of its two
 CUDA kernels.
 
-    flash_attention: q [BH, T, hd], k, v [BH, S, hd] -> out [BH, T, hd]
+    flash_attention: q [BH, T, hd], k, v [BKV, S, hd] -> out [BH, T, hd]
 
+BH is a multiple of BKV and G = BH / BKV: query row bh reads KV row
+bh // G (`blockwise_attn` flattens heads as b * H + kv * G + g, so
+bh // G = b * KV + kv), and the KV heads are never repeated in memory.
 float32 or bf16 in, q's dtype out. Scores are `q . k / sqrt(hd)` in
-float32 (the reference casts q, k and v to float32); keys s >= S are
-masked, and with `causal` keys s > t too (queries and keys both start at
-position 0). The softmax runs online over key blocks, as the reference's:
-masked scores are -1e30 and the final divide takes max(l, 1e-20), where
-`blockwise_attn` uses -inf guards. The two agree on every row that has a
-valid key, and a causal prefill has no other kind.
+float32 (the reference casts q, k and v to float32). Query row t sits at
+global position r = q_offset + t, key column c at local position c; key
+c is live for row r when all of these hold (`_mask_block`):
+
+- c < S;
+- with `causal`: c <= r, or c < prefix_len;
+- with window > 0: c > r - window (with or without `causal`).
+
+The softmax runs online over key blocks, as the reference's: masked
+scores are -1e30 and the final divide takes max(l, 1e-20); a row with no
+live key returns 0, as `blockwise_attn`'s -inf guards give it. Key
+blocks outside the live range of every row in a block of rows are never
+visited; each such block adds exactly nothing there.
 
 `flash_attention_ref` is the plain version: the CPU path and the
 yardstick the kernels are compared with on the card (a float32 `bmm` per
-block of 256 keys; TF32 off). `flash_attention_cuda` launches one of two
-CUDA kernels (built by `_build.py`), chosen by shape:
+block of 256 keys over [BKV, G * T] query rows; TF32 off).
+`flash_attention_cuda` launches one of two CUDA kernels (built by
+`_build.py`), chosen by shape:
 
 - `csrc/flash_attention_tc.cu`, bf16 on the tensor cores (wgmma, TMA),
   for bf16 operands with hd a multiple of 8 and 16-byte aligned bases
@@ -45,7 +56,7 @@ from repro_torch.kernels.l2dist import as_f32, raise_on
 __all__ = ["FMA_LAUNCHES", "MAX_HEAD_DIM", "NEG_INF", "TC_LAUNCHES",
            "flash_attention_ref", "flash_attention_cuda",
            "flash_attention_fma_cuda", "flash_attention_tc_cuda",
-           "takes_tensor_cores"]
+           "live_keys", "takes_tensor_cores"]
 
 # launches of each CUDA kernel since import (or since a caller reset them)
 TC_LAUNCHES = 0                   # csrc/flash_attention_tc.cu
@@ -57,42 +68,73 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCK_K = 256                    # keys a plain-version step takes
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
+def _prefix(prefix_len) -> int:
+    """prefix_len as the kernels take it: None is 0 (no key is below 0)."""
+    return 0 if prefix_len is None else int(prefix_len)
+
+
+def live_keys(r_lo: int, r_hi: int, s: int, *, causal: bool, window: int,
+              prefix: int) -> tuple[int, int]:
+    """[lo, hi], the key columns any row r_lo..r_hi (global positions) may
+    see; empty when lo > hi. The kernels bound their key tiles by it, a
+    block of rows at a time, and so does the plain version."""
+    lo = max(0, r_lo - window + 1) if window > 0 else 0
+    hi = min(s - 1, max(r_hi, prefix - 1)) if causal else s - 1
+    return lo, hi
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        prefix_len=None, q_offset: int = 0):
     """Plain version of `flash_attention`: the reference's online softmax
-    over 256-key blocks, every query row at once. Blocks wholly in a
-    row's causal future add exactly nothing there (p = 0, corr = 1), so
-    the result is the reference's, which skips them."""
+    over 256-key blocks, every query row of a KV head at once, over the
+    blocks in `live_keys` of all rows. A block outside a row's own live
+    range adds exactly nothing there (p = 0 and corr = 1, or, before the
+    row's first live key, a correction of exactly 0), so the result is
+    the reference's, which visits every block."""
     bh, t, hd = q.shape
-    s = k.shape[1]
+    bkv, s, _ = k.shape
+    g = bh // bkv
+    prefix, window, q_offset = _prefix(prefix_len), int(window), int(q_offset)
     scale = 1.0 / math.sqrt(hd)
-    qf = q.float()
-    m = qf.new_full((bh, t, 1), NEG_INF)
-    l = qf.new_zeros((bh, t, 1))
-    acc = qf.new_zeros((bh, t, v.shape[2]))
-    row = torch.arange(t, device=q.device)[:, None]
-    for k0 in range(0, min(s, t) if causal else s, _BLOCK_K):
+    qf = q.float().reshape(bkv, g * t, hd)         # row bkv * G + g, then t
+    m = qf.new_full((bkv, g * t, 1), NEG_INF)
+    l = qf.new_zeros((bkv, g * t, 1))
+    acc = qf.new_zeros((bkv, g * t, v.shape[2]))
+    row = q_offset + torch.arange(t, device=q.device).repeat(g)[:, None]
+    lo, hi = live_keys(q_offset, q_offset + t - 1, s, causal=causal,
+                       window=window, prefix=prefix)
+    for k0 in range(lo - lo % _BLOCK_K, hi + 1, _BLOCK_K):
         kb, vb = k[:, k0:k0 + _BLOCK_K].float(), v[:, k0:k0 + _BLOCK_K].float()
         sc = torch.bmm(qf, kb.transpose(1, 2)) * scale
+        col = k0 + torch.arange(kb.shape[1], device=q.device)[None, :]
+        ok = None
         if causal:
-            col = k0 + torch.arange(kb.shape[1], device=q.device)[None, :]
-            sc = torch.where(col <= row, sc, NEG_INF)
+            ok = col <= row
+            if prefix > 0:
+                ok = ok | (col < prefix)
+        if window > 0:
+            near = col > row - window
+            ok = near if ok is None else ok & near
+        if ok is not None:
+            sc = torch.where(ok, sc, NEG_INF)
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
         p = torch.exp(sc - m_new)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
         acc = acc * corr + torch.bmm(p, vb)
         m = m_new
-    return (acc / l.clamp_min(1e-20)).to(q.dtype)
+    out = torch.where(m == NEG_INF, 0.0, acc / l.clamp_min(1e-20))
+    return out.reshape(bh, t, -1).to(q.dtype)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FMA_SIGNATURES = {
-    "repro_flash_attention": (ctypes.c_int, [_P] * 4 + [_I] * 7 +
+    "repro_flash_attention": (ctypes.c_int, [_P] * 4 + [_I] * 11 +
                               [ctypes.c_float, _I, _P]),
     "repro_flash_attention_error_string": (ctypes.c_char_p, [_I]),
 }
 _TC_SIGNATURES = {
-    "repro_flash_attention_tc": (ctypes.c_int, [_P] * 4 + [_I] * 6 +
+    "repro_flash_attention_tc": (ctypes.c_int, [_P] * 4 + [_I] * 10 +
                                  [ctypes.c_float, _P]),
     "repro_flash_attention_tc_error_string": (ctypes.c_char_p, [_I]),
 }
@@ -107,40 +149,48 @@ def takes_tensor_cores(q, k, v) -> bool:
             and all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
 
 
-def _operands(q, k, v):
-    """(BH, T, S, hd, device index, stream) of checked operands: q, k and
-    v contiguous, on one CUDA device, all float32 or all bf16, hd <= 256;
-    raises on anything else."""
+def _operands(q, k, v, window, prefix_len, q_offset):
+    """(BH, BKV, T, S, hd, mask ints, device index, stream) of checked
+    operands: q [BH, T, hd], k and v [BKV, S, hd] with BKV dividing BH,
+    contiguous, on one CUDA device, all float32 or all bf16, hd <= 256,
+    window, prefix_len and q_offset >= 0; raises on anything else."""
     if not all(t.device.type == "cuda" for t in (q, k, v)):
         raise ValueError("flash_attention: the kernel takes CUDA tensors")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q, k, v must all be float32 or "
                          f"all bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or \
-            k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
-        raise ValueError(f"flash_attention: q [BH, T, hd], k and v [BH, S, "
-                         f"hd]; got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+            k.shape[0] == 0 or q.shape[0] % k.shape[0] or \
+            k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attention: q [BH, T, hd], k and v [BKV, S, "
+                         f"hd] with BKV dividing BH; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must be contiguous")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_attention: q, k and v on different devices")
     bh, t, hd = q.shape
-    s = k.shape[1]
+    bkv, s = k.shape[0], k.shape[1]
     if not 0 < hd <= MAX_HEAD_DIM or s == 0:
         raise ValueError(f"flash_attention: hd={hd}, S={s}; the kernel takes "
                          f"1 <= hd <= {MAX_HEAD_DIM} and S >= 1")
+    mask = (int(window), _prefix(prefix_len), int(q_offset))
+    if min(mask) < 0 or max(mask) + t >= 2 ** 31:
+        raise ValueError(f"flash_attention: window, prefix_len and q_offset "
+                         f"must be >= 0 and fit an int; got {mask}")
     dev = q.device
-    return (bh, t, s, hd, dev.index or 0,
+    return (bh, bkv, t, s, hd, mask, dev.index or 0,
             torch.cuda.current_stream(dev).cuda_stream)
 
 
-def flash_attention_tc_cuda(q, k, v, *, causal: bool = True):
+def flash_attention_tc_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                            prefix_len=None, q_offset: int = 0):
     """Launch `csrc/flash_attention_tc.cu` (bf16 on the tensor cores) on
     the current stream: out [BH, T, hd] bf16. Raises on operands
     `takes_tensor_cores` refuses, as `_operands` does, and if the launch
     fails."""
-    bh, t, s, hd, index, stream = _operands(q, k, v)
+    bh, bkv, t, s, hd, mask, index, stream = _operands(
+        q, k, v, window, prefix_len, q_offset)
     if not takes_tensor_cores(q, k, v):
         raise ValueError(f"flash_attention: the tensor-core kernel takes bf16 "
                          f"with hd % 8 == 0 and 16-byte aligned bases; got "
@@ -149,37 +199,41 @@ def flash_attention_tc_cuda(q, k, v, *, causal: bool = True):
     lib = _build.load("flash_attention_tc", _TC_SIGNATURES)
     err = lib.repro_flash_attention_tc(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), index, bh,
-        t, s, hd, int(causal), as_f32(math.log2(math.e) / math.sqrt(hd)),
-        stream)
+        bkv, t, s, hd, int(causal), *mask,
+        as_f32(math.log2(math.e) / math.sqrt(hd)), stream)
     raise_on(lib, "repro_flash_attention_tc_error_string", err,
              "flash_attention (tensor cores)")
     _build.count_launch(__name__, "TC_LAUNCHES")
     return out
 
 
-def flash_attention_fma_cuda(q, k, v, *, causal: bool = True):
+def flash_attention_fma_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                             prefix_len=None, q_offset: int = 0):
     """Launch `csrc/flash_attention.cu` (FP32 FMAs, any operands
     `_operands` accepts) on the current stream: out [BH, T, hd] in q's
     dtype. Raises if the launch fails."""
-    bh, t, s, hd, index, stream = _operands(q, k, v)
+    bh, bkv, t, s, hd, mask, index, stream = _operands(
+        q, k, v, window, prefix_len, q_offset)
     out = torch.empty_like(q)
     vec = int(hd * q.element_size() % 16 == 0
               and all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
     lib = _build.load("flash_attention", _FMA_SIGNATURES)
     err = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), index, bh,
-        t, s, hd, _DTYPES[q.dtype], int(causal), as_f32(1.0 / math.sqrt(hd)),
-        vec, stream)
+        bkv, t, s, hd, _DTYPES[q.dtype], int(causal), *mask,
+        as_f32(1.0 / math.sqrt(hd)), vec, stream)
     raise_on(lib, "repro_flash_attention_error_string", err,
              "flash_attention (FP32 FMA)")
     _build.count_launch(__name__, "FMA_LAUNCHES")
     return out
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True):
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                         prefix_len=None, q_offset: int = 0):
     """out [BH, T, hd] in q's dtype from one of the two CUDA kernels,
     chosen by shape: `flash_attention_tc_cuda` where `takes_tensor_cores`
     holds, else `flash_attention_fma_cuda`. Raises as they do."""
-    if takes_tensor_cores(q, k, v):
-        return flash_attention_tc_cuda(q, k, v, causal=causal)
-    return flash_attention_fma_cuda(q, k, v, causal=causal)
+    fn = (flash_attention_tc_cuda if takes_tensor_cores(q, k, v)
+          else flash_attention_fma_cuda)
+    return fn(q, k, v, causal=causal, window=window, prefix_len=prefix_len,
+              q_offset=q_offset)

@@ -1,21 +1,24 @@
-// Causal / full flash attention for Hopper (sm_90a): `flash_attention`.
+// Masked flash attention for Hopper (sm_90a): `flash_attention`.
 //
 // Replaces the TPU kernel `flash_attention_pallas`
 // (src/repro/kernels/attention.py), the Pallas twin of the LM substrate's
-// `blockwise_attn` (src/repro/models/layers.py). It computes what it
-// computes, and what the plain PyTorch version `flash_attention_ref`
-// (src/repro_torch/kernels/attention.py) computes:
+// `blockwise_attn` (src/repro/models/layers.py), with the whole of that
+// function's mask (`_mask_block`). It computes what the plain PyTorch
+// version `flash_attention_ref` (src/repro_torch/kernels/attention.py)
+// computes:
 //
-//   out[b, t] = sum_s softmax_s(q[b, t] . k[b, s] / sqrt(hd)) v[b, s]
+//   out[b, t] = sum_c softmax_c(q[b, t] . k[b / G, c] / sqrt(hd)) v[b / G, c]
 //
-// over q [BH, T, hd], k, v [BH, S, hd] in float32 or bf16, out in q's type.
-// Keys s >= S are masked (the reference's `s_valid`); with `causal`, keys
-// s > t are masked too (queries and keys both start at position 0). The
-// softmax runs online over key blocks in float32, as the reference's
-// (it casts q, k and v to float32): a running max m, sum l and
-// accumulator acc a row, masked scores at -1e30, out = acc / max(l, 1e-20).
-// Key blocks wholly in the causal future of a query block are never
-// visited (the reference's `live`).
+// over q [BH, T, hd], k, v [BKV, S, hd] (G = BH / BKV query heads a KV
+// head) in float32 or bf16, out in q's type. Row t sits at global position
+// r = q_offset + t, key c at local position c; the key is live when c < S
+// (the reference's `s_valid`), with `causal` c <= r or c < prefix, and
+// with window > 0 c > r - window. The softmax runs online over key blocks
+// in float32, as the reference's (it casts q, k and v to float32): a
+// running max m, sum l and accumulator acc a row, masked scores at -1e30,
+// out = acc / max(l, 1e-20), and 0 on a row that saw no live key (the
+// reference's -inf guards). Key blocks outside every row's live range are
+// never visited (the reference's `live`, and the window's start).
 //
 // Layout. One CTA of 256 threads a (bh, 64-query block); the heaviest
 // causal blocks are launched first. The CTA stages its queries once,
@@ -152,11 +155,12 @@ __host__ __device__ inline size_t smem_bytes(int hd, int ng) {
 template <typename T, int NG>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q,   // [BH, Tq, hd]
-                       const T* __restrict__ k,   // [BH, S, hd]
-                       const T* __restrict__ v,   // [BH, S, hd]
+                       const T* __restrict__ k,   // [BKV, S, hd]
+                       const T* __restrict__ v,   // [BKV, S, hd]
                        T* __restrict__ o,         // [BH, Tq, hd]
-                       int BH, int Tq, int S, int hd, float scale,
-                       int causal, int vec) {
+                       int BH, int G, int Tq, int S, int hd, float scale,
+                       int causal, int window, int prefix, int q_offset,
+                       int vec) {
   extern __shared__ __align__(16) float smem[];
   constexpr int LDV = v_stride(NG);
   float* qT = smem;                        // [hd][kBQ]
@@ -170,7 +174,7 @@ flash_attention_kernel(const T* __restrict__ q,   // [BH, Tq, hd]
   const int q0 = qb * kBQ;
   const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
   const long long qoff = static_cast<long long>(bh) * Tq * hd;
-  const long long koff = static_cast<long long>(bh) * S * hd;
+  const long long koff = static_cast<long long>(bh / G) * S * hd;
 
   // vs's columns from hd to LDV are never staged: zero them once
   for (int e = tid; e < kBK * LDV; e += kThreads) vs[e] = 0.f;
@@ -186,10 +190,26 @@ flash_attention_kernel(const T* __restrict__ q,   // [BH, Tq, hd]
     for (int c = 0; c < NG * 4; ++c) acc[i][c] = 0.f;
   }
 
-  const int nkb = (S + kBK - 1) / kBK;
-  // the last key block any of this block's queries may see
-  const int last = causal ? min(nkb - 1, (q0 + kBQ - 1) / kBK) : nkb - 1;
-  for (int kb = 0; kb <= last; ++kb) {
+  // The live keys of global row r are one interval [lo(r), hi(r)]: c < S,
+  // with `causal` c <= max(r, prefix - 1), with a window c >= r - window
+  // + 1; both ends grow with r. This thread's four rows' intervals, and
+  // the key blocks any of this block's rows may see, [lo(r_lo), hi(r_hi)].
+  const auto lo_of = [&](int r) {
+    return window > 0 ? max(0, r - window + 1) : 0;
+  };
+  const auto hi_of = [&](int r) {
+    return causal ? min(S - 1, max(r, prefix - 1)) : S - 1;
+  };
+  int key_lo[4], key_hi[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    key_lo[i] = lo_of(q_offset + q0 + tr * 4 + i);
+    key_hi[i] = hi_of(q_offset + q0 + tr * 4 + i);
+  }
+  const int lo = lo_of(q_offset + q0);
+  const int hi = hi_of(q_offset + min(q0 + kBQ, Tq) - 1);
+  const int last = lo > hi ? -1 : hi / kBK;
+  for (int kb = lo / kBK; kb <= last; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();                       // the previous block is consumed
     stage_transposed(kT, kLDK, k + koff + static_cast<long long>(k0) * hd,
@@ -218,13 +238,12 @@ flash_attention_kernel(const T* __restrict__ q,   // [BH, Tq, hd]
     float corr[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = q0 + tr * 4 + i;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tc * 4 + j;
         float val = s[i][j] * scale;
-        if (col >= S || (causal && col > row)) val = kNegInf;
+        if (col < key_lo[i] || col > key_hi[i]) val = kNegInf;
         s[i][j] = val;
         mx = fmaxf(mx, val);
       }
@@ -286,7 +305,8 @@ flash_attention_kernel(const T* __restrict__ q,   // [BH, Tq, hd]
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + tr * 4 + i;
     if (row >= Tq) continue;
-    const float inv_l = 1.f / fmaxf(l[i], 1e-20f);
+    // a row with no live key is 0 (the reference's -inf guards)
+    const float inv_l = m[i] == kNegInf ? 0.f : 1.f / fmaxf(l[i], 1e-20f);
     T* orow = o + qoff + static_cast<long long>(row) * hd;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -298,10 +318,15 @@ flash_attention_kernel(const T* __restrict__ q,   // [BH, Tq, hd]
   }
 }
 
+// The mask's scalars, as the C interface takes them.
+struct Mask {
+  int causal, window, prefix, q_offset;
+};
+
 template <typename T, int NG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int BH, int Tq, int S, int hd, float scale, int causal,
-                   int vec, cudaStream_t stream) {
+                   int BH, int BKV, int Tq, int S, int hd, float scale,
+                   const Mask& mk, int vec, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd, NG);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -315,48 +340,52 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_attention_kernel<T, NG>
       <<<static_cast<unsigned int>(grid), kThreads, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(o), BH, Tq, S, hd, scale,
-          causal, vec);
+          static_cast<const T*>(v), static_cast<T*>(o), BH, BH / BKV, Tq, S,
+          hd, scale, mk.causal, mk.window, mk.prefix, mk.q_offset, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
-                      int BH, int Tq, int S, int hd, float scale, int causal,
-                      int vec, cudaStream_t st) {
+                      int BH, int BKV, int Tq, int S, int hd, float scale,
+                      const Mask& mk, int vec, cudaStream_t st) {
   switch ((hd + 63) / 64) {
-    case 1: return launch<T, 1>(q, k, v, o, BH, Tq, S, hd, scale, causal, vec, st);
-    case 2: return launch<T, 2>(q, k, v, o, BH, Tq, S, hd, scale, causal, vec, st);
-    case 3: return launch<T, 3>(q, k, v, o, BH, Tq, S, hd, scale, causal, vec, st);
-    case 4: return launch<T, 4>(q, k, v, o, BH, Tq, S, hd, scale, causal, vec, st);
+    case 1: return launch<T, 1>(q, k, v, o, BH, BKV, Tq, S, hd, scale, mk, vec, st);
+    case 2: return launch<T, 2>(q, k, v, o, BH, BKV, Tq, S, hd, scale, mk, vec, st);
+    case 3: return launch<T, 3>(q, k, v, o, BH, BKV, Tq, S, hd, scale, mk, vec, st);
+    case 4: return launch<T, 4>(q, k, v, o, BH, BKV, Tq, S, hd, scale, mk, vec, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// C interface, bound with ctypes. q [BH, Tq, hd], k / v [BH, S, hd] and o
-// [BH, Tq, hd] contiguous, all of `dtype` (0 float32, 1 bf16); 1 <= hd <=
-// 256; `vec` says the rows may be staged 16 bytes at a time (hd * the
+// C interface, bound with ctypes. q [BH, Tq, hd], k / v [BKV, S, hd] and
+// o [BH, Tq, hd] contiguous, all of `dtype` (0 float32, 1 bf16), BKV
+// dividing BH; 1 <= hd <= 256; window, prefix and q_offset >= 0 (prefix
+// 0: none); `vec` says the rows may be staged 16 bytes at a time (hd * the
 // element size a multiple of 16, every pointer 16-byte aligned); `scale`
 // is 1 / sqrt(hd) rounded to float32. The Python wrapper checked every
 // shape and pointer. Launches on `stream` and returns cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int device,
-                                     int BH, int Tq, int S, int hd, int dtype,
-                                     int causal, float scale, int vec,
-                                     void* stream) {
+                                     int BH, int BKV, int Tq, int S, int hd,
+                                     int dtype, int causal, int window,
+                                     int prefix, int q_offset, float scale,
+                                     int vec, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (BH == 0 || Tq == 0) return 0;
-  if (S < 1 || hd < 1 || hd > 256)
+  if (S < 1 || hd < 1 || hd > 256 || BKV < 1 || BH % BKV != 0 ||
+      window < 0 || prefix < 0 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Mask mk{causal, window, prefix, q_offset};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: err = launch_hd<float>(q, k, v, o, BH, Tq, S, hd, scale, causal,
+    case 0: err = launch_hd<float>(q, k, v, o, BH, BKV, Tq, S, hd, scale, mk,
                                    vec, st); break;
-    case 1: err = launch_hd<__nv_bfloat16>(q, k, v, o, BH, Tq, S, hd, scale,
-                                           causal, vec, st); break;
+    case 1: err = launch_hd<__nv_bfloat16>(q, k, v, o, BH, BKV, Tq, S, hd,
+                                           scale, mk, vec, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

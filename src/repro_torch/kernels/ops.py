@@ -108,12 +108,18 @@ def topk(x, k: int):
     return _pick(x, topk_cuda, topk_ref, "topk")(x, k)
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    prefix_len=None, q_offset: int = 0):
     """Softmax attention over flattened heads (kernels/attention.py): q
-    [BH, T, hd], k, v [BH, S, hd] float32 or bf16 -> [BH, T, hd] in q's
-    dtype; scores scaled by 1 / sqrt(hd), keys past t masked when
-    `causal`. The kernels take hd <= 256: bf16 with hd % 8 == 0 runs on
-    the tensor cores, the rest on FP32 FMAs (`takes_tensor_cores`)."""
+    [BH, T, hd], k, v [BKV, S, hd] (BKV dividing BH: query row bh reads
+    KV row bh // (BH / BKV)) float32 or bf16 -> [BH, T, hd] in q's dtype;
+    scores scaled by 1 / sqrt(hd); query rows at positions q_offset.., keys
+    at 0..S-1, masked as `blockwise_attn` masks them (causal, with a
+    bidirectional prefix of `prefix_len` keys; a sliding window); a row
+    with no live key is 0. The kernels take hd <= 256: bf16 with
+    hd % 8 == 0 runs on the tensor cores, the rest on FP32 FMAs
+    (`takes_tensor_cores`)."""
     fn = _pick(q, flash_attention_cuda, flash_attention_ref,
                "flash_attention")
-    return fn(q, k, v, causal=causal)
+    return fn(q, k, v, causal=causal, window=window, prefix_len=prefix_len,
+              q_offset=q_offset)

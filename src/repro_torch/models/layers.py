@@ -1,22 +1,26 @@
-"""Attention and MLP building blocks of the LM substrate: the parts the
-MLA prefill / decode path runs (the reference's `models/layers.py`).
+"""Attention and MLP building blocks of the LM substrate (the
+reference's `models/layers.py`).
 
 Parameters live in `Params` modules whose parameter names are the
 reference's dict keys (`p["wq"]` reads one), built on a device in one
 dtype and drawn from an explicit `torch.Generator` at the reference's
 scales. The apply functions are plain functions of (module, tensors).
 
-Attention comes in two execution paths here:
+Attention comes in three execution paths, as in the reference:
   * blockwise (flash-style) attention for prefill through
-    `kernels.ops.flash_attention`: the hand-written kernel on a CUDA
-    tensor, its plain version on a CPU tensor;
+    `kernels.ops.flash_attention`, with the reference's whole mask
+    (causal, sliding window, bidirectional prefix, query offset) and
+    grouped KV heads: the hand-written kernel on a CUDA tensor, its plain
+    version on a CPU tensor;
+  * single-token decode against a KV cache (`_decode_attn`): a full
+    cache, a ring buffer for a sliding window, or an int8 cache
+    (`quant_kv`) without one; plain torch, as the reference's is plain
+    jnp;
   * MLA (DeepSeek-V2) with the compressed (c_kv, k_rope) cache and the
     absorbed decode (w_uk / w_uv folded into the query and output
     projections), plain torch as the reference's is plain jnp.
 
-The GQA layer (`attn_*`), its sliding-window ring buffer and the int8 KV
-cache (`quant_kv`) are not on this path: they raise NotImplementedError
-(ROADMAP.md Queue 1).
+Caches are written in place through the views the stack hands in.
 """
 
 from __future__ import annotations
@@ -32,9 +36,9 @@ from repro_torch.kernels import ops
 
 __all__ = [
     "ACTS", "MLAConfig", "Params", "apply_rope", "attn_apply",
-    "attn_cache_init", "attn_init", "blockwise_attn", "mla_apply",
-    "mla_cache_init", "mla_init", "mlp_apply", "mlp_init", "quant_kv",
-    "rms_norm",
+    "attn_cache_init", "attn_init", "blockwise_attn", "dequant_kv",
+    "mla_apply", "mla_cache_init", "mla_init", "mlp_apply", "mlp_init",
+    "quant_kv", "rms_norm",
 ]
 
 ACTS = {
@@ -42,9 +46,6 @@ ACTS = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "relu2": lambda x: torch.square(F.relu(x)),
 }
-
-_QUEUED = "is not ported yet (ROADMAP.md Queue 1)"
-
 
 class Params(nn.Module):
     """A module whose parameters and children carry the reference's dict
@@ -129,45 +130,164 @@ def blockwise_attn(q, k, v, *, causal: bool = True, window: int = 0,
                    prefix_len=None, q_offset=0):
     """Softmax attention of q [B, T, H, hd] over k, v [B, S, KV, hd] ->
     [B, T, H, hd] in q's dtype, through `ops.flash_attention` over
-    [B * H, T, hd]: the kernel on CUDA tensors, its plain version on CPU
-    tensors. Both compute a causal or full mask from position 0 with as
-    many KV heads as heads (true of MLA); windows, prefixes, offsets and
-    grouped heads raise on every device. The reference's `block_q`,
-    `block_k` and `skip_masked_blocks` change no result and are not
-    taken: the kernel fixes its own blocks and skips future ones."""
+    [B * H, T, hd] queries and [B * KV, S, hd] keys and values (query
+    head h = kv * G + g reads KV head kv, the reference's [B, T, KV, G,
+    hd] grouping; nothing is repeated): the kernel on CUDA tensors, its
+    plain version on CPU tensors. The mask is the reference's
+    `_mask_block`: queries at positions q_offset.., keys at 0..S-1,
+    causal with an optional bidirectional prefix (`prefix_len`, an int or
+    a 0-d tensor, read once), an optional sliding window; a query with no
+    live key gives 0. The reference's `block_q`, `block_k` and
+    `skip_masked_blocks` change no result and are not taken: the kernel
+    fixes its own blocks and skips the dead ones."""
     B, T, H, hd = q.shape
-    if (window and window > 0) or prefix_len is not None or \
-            int(q_offset) != 0 or k.shape[2] != H:
-        raise NotImplementedError(
-            "blockwise_attn takes a causal or full mask from position 0 with "
-            "KV heads == heads; windows, prefixes, offsets and grouped heads "
-            "are queued in ROADMAP.md Queue 1")
-    heads = [t.transpose(1, 2).reshape(B * H, -1, hd).contiguous()
-             for t in (q, k, v)]
-    out = ops.flash_attention(*heads, causal=causal)
+    S, KV = k.shape[1], k.shape[2]
+    qh = q.transpose(1, 2).reshape(B * H, T, hd).contiguous()
+    kh, vh = (t.transpose(1, 2).reshape(B * KV, S, hd).contiguous()
+              for t in (k, v))
+    out = ops.flash_attention(
+        qh, kh, vh, causal=causal, window=int(window or 0),
+        prefix_len=None if prefix_len is None else int(prefix_len),
+        q_offset=int(q_offset))
     return out.reshape(B, H, T, hd).transpose(1, 2)
 
 
+def _decode_attn(q, k, v, *, s_valid: int):
+    """Single-token attention against the whole cache, keys >= s_valid
+    masked (the reference's `_decode_attn`). q [B, 1, H, hd], k, v
+    [B, S, KV, hd]."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    qf = q.reshape(B, KV, H // KV, hd).float()
+    s = torch.einsum("bKgh,bsKh->bKgs", qf, k.float()) * (1.0 / math.sqrt(hd))
+    ok = torch.arange(k.shape[1], device=q.device) < s_valid
+    p = torch.softmax(s.masked_fill(~ok, float("-inf")), dim=-1)
+    out = torch.einsum("bKgs,bsKh->bKgh", p, v.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
-# GQA attention and the int8 KV cache: not on the MLA path
+# int8 KV-cache quantization (a scale per token and head)
 # ---------------------------------------------------------------------------
 
 
-def attn_init(*args, **kwargs):
-    raise NotImplementedError(f"the GQA attention layer {_QUEUED}")
+def quant_kv(x):
+    """[..., hd] -> (int8 values, bf16 scale [..., 1]): the reference's
+    float32 max-abs scale over 127, values rounded half to even."""
+    xf = x.float()
+    scale = xf.abs().amax(-1, keepdim=True).clamp_min(1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
 
 
-def attn_apply(*args, **kwargs):
-    raise NotImplementedError(f"the GQA attention layer (with its "
-                              f"sliding-window ring buffer) {_QUEUED}")
+def dequant_kv(q, scale, dtype=torch.bfloat16):
+    return (q.float() * scale.float()).to(dtype)
 
 
-def attn_cache_init(*args, **kwargs):
-    raise NotImplementedError(f"the GQA KV cache {_QUEUED}")
+# ---------------------------------------------------------------------------
+# GQA attention (full / sliding-window, optional qk_norm)
+# ---------------------------------------------------------------------------
 
 
-def quant_kv(*args, **kwargs):
-    raise NotImplementedError(f"the int8 KV cache (kv_quant) {_QUEUED}")
+def attn_init(d_model: int, n_heads: int, n_kv: int, head_dim: int,
+              qk_norm: bool = False, *, dtype=torch.float32,
+              device=None) -> Params:
+    p = Params()
+    s = 1.0 / math.sqrt(d_model)
+    kw = {"dtype": dtype, "device": device}
+    p.add("wq", (d_model, n_heads, head_dim), s, **kw)
+    p.add("wk", (d_model, n_kv, head_dim), s, **kw)
+    p.add("wv", (d_model, n_kv, head_dim), s, **kw)
+    p.add("wo", (n_heads, head_dim, d_model),
+          1.0 / math.sqrt(n_heads * head_dim), **kw)
+    if qk_norm:
+        p.add("q_norm", (head_dim,), None, **kw)
+        p.add("k_norm", (head_dim,), None, **kw)
+    return p
+
+
+def attn_apply(p, x, *, mode: str, cache=None, pos=0, window: int = 0,
+               prefix_len=None, rope_theta: float = 1e4):
+    """GQA attention of x [B, T, d] -> (y [B, T, d], cache). The cache is
+    {"k", "v": [B, S, KV, hd]}: every position (S = s_max), a ring buffer
+    of the last S = min(window, s_max) positions at slot position % S, or
+    int8 values with {"ks", "vs": bf16 [B, S, KV, 1]} scales (no window);
+    it is written in place (prefill with a cache, and decode) and
+    returned."""
+    B, T, _ = x.shape
+    pos = int(pos)
+    window = int(window or 0)
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    k = torch.einsum("btd,dhk->bthk", x, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    positions = pos + torch.arange(T, device=x.device)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+
+    if mode == "decode":
+        S = cache["k"].shape[1]
+        if window > 0:                                 # ring-buffer write
+            _write_kv(cache, k, v, pos % S)
+            s_valid = min(pos + 1, S)
+        else:
+            _write_kv(cache, k, v, pos)
+            s_valid = pos + 1
+        k_all, v_all = cache["k"], cache["v"]
+        if "ks" in cache:                              # int8 cache
+            with torch.profiler.record_function("attn.dequant_kv"):
+                k_all = dequant_kv(cache["k"], cache["ks"], k.dtype)
+                v_all = dequant_kv(cache["v"], cache["vs"], v.dtype)
+        with torch.profiler.record_function("attn.decode_attention"):
+            out = _decode_attn(q, k_all, v_all, s_valid=s_valid)
+    else:
+        out = blockwise_attn(q, k, v, causal=True, window=window,
+                             prefix_len=prefix_len, q_offset=pos)
+        if mode == "prefill" and cache is not None:
+            S = cache["k"].shape[1]
+            if window > 0:
+                # the last min(S, T) positions, at slot position % S
+                n = min(S, T)
+                slots = (pos + T - n + torch.arange(n, device=x.device)) % S
+                for name, new in (("k", k), ("v", v)):
+                    cache[name][:, slots] = new[:, T - n:].to(
+                        cache[name].dtype)
+            else:
+                _write_kv(cache, k, v, pos)
+    y = torch.einsum("bthk,hkd->btd", out, p["wo"])
+    return y, cache
+
+
+def _write_kv(cache, k, v, pos: int):
+    """k, v [B, T, KV, hd] into the cache at positions pos.. in place: as
+    they are, or as int8 values and bf16 scales where the cache has
+    them."""
+    for name, new in (("k", k), ("v", v)):
+        if "ks" in cache:
+            new, scale = quant_kv(new)
+            _write_cache(cache[name + "s"], scale, pos)
+        _write_cache(cache[name], new, pos)
+
+
+def attn_cache_init(batch: int, s_max: int, n_kv: int, head_dim: int,
+                    window: int = 0, *, dtype=torch.float32, quant=False,
+                    device=None) -> dict:
+    """A full cache of s_max positions, a ring buffer of min(window,
+    s_max) with a window, or (quant, no window) int8 values with bf16
+    scales."""
+    S = min(window, s_max) if window and window > 0 else s_max
+    shape = (batch, S, n_kv, head_dim)
+    if quant and not (window and window > 0):
+        scales = (batch, S, n_kv, 1)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(scales, dtype=torch.bfloat16, device=device),
+                "vs": torch.zeros(scales, dtype=torch.bfloat16,
+                                  device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------

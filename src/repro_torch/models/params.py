@@ -3,11 +3,11 @@
 `params_from_reference(tree, cfg)` takes the nested dict that
 `repro.models.transformer.init_params` returns, as numpy arrays (or
 anything `np.asarray` reads, bf16 included), and copies it into
-`model_skeleton(cfg)`: "embed", "prefix"/"<i>"/..., "final_norm" and
-"head" [d, 1, V] leaf for leaf, and "periods", whose leaves the
-reference stacks over the periods on axis 0 (`jax.vmap` of one period's
-init), split by period. Every leaf must be present with its shape, and
-nothing else.
+`model_skeleton(cfg)`: "embed" (token inputs only), "prefix"/"<i>"/...,
+"final_norm" and "head" [d, heads, V] (unless tied) leaf for leaf, and
+"periods", whose leaves the reference stacks over the periods on axis 0
+(`jax.vmap` of one period's init), split by period. Every leaf must be
+present with its shape, and nothing else.
 """
 
 from __future__ import annotations

@@ -1,6 +1,9 @@
 """Period-structured decoder stack (the reference's
-`models/transformer.py`), for the kinds this port runs: MLA attention
-with a GLU or MoE feed-forward (DeepSeek-V2-Lite).
+`models/transformer.py`), for the kinds this port runs: GQA attention
+(`attn`: full or sliding-window, a full, ring-buffer or int8 cache) and
+MLA attention, each with a GLU, non-gated ("dense"), MoE or no
+feed-forward; token or embedded inputs; a bidirectional prefix
+(prefix-LM); one or several output heads.
 
 A model is `prefix_pattern` (irregular leading layers, e.g. DeepSeek's
 dense layer 0) followed by `num_periods` repetitions of `pattern`. The
@@ -10,7 +13,7 @@ loop runs them. The cache keeps the reference's layout: the periods'
 caches stacked on axis 0, updated in place (standing in for JAX's buffer
 donation).
 
-Other layer kinds (GQA `attn`, `mamba`, `mlstm`, `slstm`) raise
+The recurrent kinds (`mamba`, `mlstm`, `slstm`) raise
 NotImplementedError (ROADMAP.md Queue 1).
 """
 
@@ -93,14 +96,10 @@ def _queued(what: str):
 
 
 def _check(spec: LayerSpec, cfg: ModelConfig):
-    if spec.kind != "mla":
+    if spec.kind not in ("attn", "mla"):
         raise _queued(f"layer kind {spec.kind!r}")
-    if spec.ffn not in ("glu", "moe", "none"):
-        raise _queued(f"feed-forward {spec.ffn!r}")
-    if cfg.kv_quant:
-        raise _queued("the int8 KV cache (kv_quant)")
-    if not cfg.embed_inputs or cfg.prefix_lm or cfg.num_output_heads != 1:
-        raise _queued("embedded inputs, prefix-LM and multi-head outputs")
+    if spec.ffn not in ("glu", "dense", "moe", "none"):
+        raise ValueError(f"feed-forward {spec.ffn!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -113,8 +112,14 @@ def _layer_init(spec: LayerSpec, cfg: ModelConfig, device) -> Params:
     kw = {"dtype": cfg.param_dtype, "device": device}
     p = Params()
     p.add("ln1", (cfg.d_model,), None, **kw)
-    p.add_module("attn", L.mla_init(cfg.d_model, cfg.n_heads, cfg.mla, **kw))
-    if spec.ffn == "glu":
+    if spec.kind == "attn":
+        p.add_module("attn", L.attn_init(cfg.d_model, cfg.n_heads,
+                                         cfg.n_kv_heads, cfg.head_dim,
+                                         qk_norm=cfg.qk_norm, **kw))
+    else:
+        p.add_module("attn", L.mla_init(cfg.d_model, cfg.n_heads, cfg.mla,
+                                        **kw))
+    if spec.ffn in ("glu", "dense"):
         p.add("ln2", (cfg.d_model,), None, **kw)
         p.add_module("ffn", L.mlp_init(cfg.d_model, cfg.d_ff, spec.ffn, **kw))
     elif spec.ffn == "moe":
@@ -126,16 +131,26 @@ def _layer_init(spec: LayerSpec, cfg: ModelConfig, device) -> Params:
 def _layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int, s_max: int,
                  dtype, device) -> dict:
     _check(spec, cfg)
+    if spec.kind == "attn":
+        return L.attn_cache_init(batch, s_max, cfg.n_kv_heads, cfg.head_dim,
+                                 window=spec.window, dtype=dtype,
+                                 quant=cfg.kv_quant, device=device)
     return L.mla_cache_init(batch, s_max, cfg.mla, dtype=dtype, device=device)
 
 
 def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, *, mode, cache,
-                 pos):
+                 pos, prefix_len=None):
     aux = 0.0
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, new_cache = L.mla_apply(
-        p["attn"], h, mode=mode, cache=cache, pos=pos, mla=cfg.mla,
-        rope_theta=cfg.rope_theta)
+    if spec.kind == "attn":
+        h, new_cache = L.attn_apply(
+            p["attn"], h, mode=mode, cache=cache, pos=pos, window=spec.window,
+            prefix_len=prefix_len if cfg.prefix_lm else None,
+            rope_theta=cfg.rope_theta)
+    else:
+        h, new_cache = L.mla_apply(
+            p["attn"], h, mode=mode, cache=cache, pos=pos, mla=cfg.mla,
+            rope_theta=cfg.rope_theta)
     x = x + h
     if "ffn" in p:
         x = x + L.mlp_apply(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
@@ -159,12 +174,14 @@ def embed_lookup(table, tokens):
 
 def model_skeleton(cfg: ModelConfig, device) -> Params:
     """The parameter module of `cfg` on `device`, uninitialised:
-    "embed", "prefix"/"<i>", "periods"/"<p>"/"<i>", "final_norm",
-    "head" [d, 1, V] (the reference's keys; its "periods" leaves are
-    stacked on axis 0, here split by period)."""
+    "embed" (token inputs only), "prefix"/"<i>", "periods"/"<p>"/"<i>",
+    "final_norm", "head" [d, heads, V] (unless tied to the embedding)
+    (the reference's keys; its "periods" leaves are stacked on axis 0,
+    here split by period)."""
     kw = {"dtype": cfg.param_dtype, "device": device}
     model = Params()
-    model.add("embed", (cfg.padded_vocab, cfg.d_model), 0.02, **kw)
+    if cfg.embed_inputs:
+        model.add("embed", (cfg.padded_vocab, cfg.d_model), 0.02, **kw)
     if cfg.prefix_pattern:
         model.add_module("prefix", Children(
             _layer_init(s, cfg, device) for s in cfg.prefix_pattern))
@@ -172,7 +189,7 @@ def model_skeleton(cfg: ModelConfig, device) -> Params:
         Children(_layer_init(s, cfg, device) for s in cfg.pattern)
         for _ in range(cfg.num_periods)))
     model.add("final_norm", (cfg.d_model,), None, **kw)
-    if not cfg.tie_embeddings:
+    if not (cfg.tie_embeddings and cfg.embed_inputs):
         model.add("head", (cfg.d_model, cfg.num_output_heads,
                            cfg.padded_vocab), cfg.d_model ** -0.5, **kw)
     return model
@@ -210,15 +227,21 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 
 def forward(model, cfg: ModelConfig, inputs, *, mode: str, cache=None,
-            pos=0):
-    """inputs: tokens [B, T] -> (hidden [B, T, d], cache, aux loss sum).
-    With a cache, each layer writes its positions pos.. in place."""
-    x = embed_lookup(model["embed"], inputs)
+            pos=0, prefix_len=None):
+    """inputs: tokens [B, T] (embed_inputs) or embeddings [B, T, d] ->
+    (hidden [B, T, d], cache, aux loss sum). With a cache, each layer
+    writes its positions pos.. in place. `prefix_len` (an int or a 0-d
+    tensor, read once here) is the bidirectional prefix of a prefix-LM
+    config; other configs ignore it, as the reference's do."""
+    x = embed_lookup(model["embed"], inputs) if cfg.embed_inputs else inputs
+    if prefix_len is not None:
+        prefix_len = int(prefix_len)
     aux_total = 0.0
     for i, spec in enumerate(cfg.prefix_pattern):
         c = cache["prefix"][str(i)] if cache is not None else None
         x, _, aux = _layer_apply(model["prefix"][str(i)], spec, cfg, x,
-                                 mode=mode, cache=c, pos=pos)
+                                 mode=mode, cache=c, pos=pos,
+                                 prefix_len=prefix_len)
         aux_total = aux_total + aux
     for per in range(cfg.num_periods):
         pparams = model["periods"][str(per)]
@@ -227,7 +250,8 @@ def forward(model, cfg: ModelConfig, inputs, *, mode: str, cache=None,
             if cache is not None:
                 c = {k: v[per] for k, v in cache["periods"][str(i)].items()}
             x, _, aux = _layer_apply(pparams[str(i)], spec, cfg, x,
-                                     mode=mode, cache=c, pos=pos)
+                                     mode=mode, cache=c, pos=pos,
+                                     prefix_len=prefix_len)
             aux_total = aux_total + aux
     x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
     return x, cache, aux_total
@@ -240,10 +264,11 @@ def _head_matrix(model, cfg: ModelConfig):
 
 
 def compute_logits(model, cfg: ModelConfig, hidden):
-    """hidden [B, T, d] -> logits [B, T, padded_V] float32; padded vocab
-    columns are -inf so sampling / argmax never selects them."""
+    """hidden [B, T, d] -> logits [B, T, (heads,) padded_V] float32 (the
+    heads axis only when num_output_heads > 1); padded vocab columns are
+    -inf so sampling / argmax never selects them."""
     head = _head_matrix(model, cfg)
     logits = torch.einsum("btd,dhv->bthv", hidden.float(), head.float())
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = float("-inf")
-    return logits[:, :, 0]
+    return logits[:, :, 0] if cfg.num_output_heads == 1 else logits

@@ -24,8 +24,13 @@ them, at that file's shapes. Inputs are made by numpy from a seed.
 The CUDA kernels against the plain versions run only where there is a
 card (the `cuda` marker); here they skip. There `topk` is bitwise and
 `flash_attention` is held to 1e-5 + 1e-5 |want| in float32 (sums in
-another order) and to one bf16 spacing in bf16. bf16 with hd a multiple
-of 8 goes to the tensor-core kernel, the rest to the FP32-FMA kernel;
+another order) and to one bf16 spacing in bf16, also on every mask of
+`blockwise_attn` (windows, prefixes, query offsets, a window without the
+causal mask) with G = 1, 2, 5 and 8 query heads a KV head and hd 64, 120,
+128 and 256, on rows that see no key (zeros: a CTA whose tile range is
+empty) and at danube's [2, 8192, 120] with its 4,096 window. bf16 with
+hd a multiple of 8 goes to the tensor-core kernel, the rest to the
+FP32-FMA kernel;
 which shapes go where is checked here (`takes_tensor_cores`), and the
 tensor-core kernel's premise for P.V too: a float32 P in [0, 1] is the
 exact sum of three bf16 pieces.
@@ -412,6 +417,91 @@ def test_cuda_flash_attention_matches_plain(bh, t, s, hd, causal, dtype):
         (got - want).abs().max())
 
 
+# the masks of `blockwise_attn` the kernels must compute: windows, prefixes,
+# query offsets, both together, a window without the causal mask
+MASKS = [
+    {}, {"window": 1}, {"window": 5}, {"window": 7, "q_offset": 7},
+    {"window": 40}, {"prefix_len": 1}, {"prefix_len": 9},
+    {"prefix_len": 35, "q_offset": 7}, {"q_offset": 40},
+    {"window": 5, "prefix_len": 9, "q_offset": 7},
+    {"causal": False, "window": 7}, {"causal": False, "window": 40,
+                                     "q_offset": 40},
+]
+
+
+def _check_kernel(q, k, v, kernel, **kw):
+    """flash_attention_cuda on q, k, v within the plain version's
+    tolerance, on `kernel` ("tc" or "fma") by the launch counters."""
+    before = attention.TC_LAUNCHES, attention.FMA_LAUNCHES
+    got = attention.flash_attention_cuda(q, k, v, **kw)
+    want = attention.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    took = (attention.TC_LAUNCHES - before[0], attention.FMA_LAUNCHES
+            - before[1])
+    assert took == ((1, 0) if kernel == "tc" else (0, 1)), (took, kw)
+    got, want = got.float(), want.float()
+    if q.dtype == torch.float32:
+        tol = 1e-5 + 1e-5 * want.abs()
+    else:
+        tol = BF16_SPACING * torch.maximum(got.abs(), want.abs()) + 1e-6
+    assert bool(((got - want).abs() <= tol).all()), (kw, float(
+        (got - want).abs().max()))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", MASKS)
+@pytest.mark.parametrize("g", [1, 2, 5, 8])
+@pytest.mark.parametrize("hd", [64, 120, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_masks_and_grouped_heads(kw, g, hd, dtype):
+    """Both kernels (bf16: the tensor cores; float32: FP32 FMAs) against
+    the plain version on every mask, G query heads a KV head, T != S
+    (150 queries over 170 keys: three 64-key tiles, two 128-row CTAs)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(hd * 10 + g)
+    q = torch.randn((2 * g, 150, hd), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((2, 170, hd), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    _check_kernel(q, k, v, "tc" if dtype == torch.bfloat16 else "fma", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [16, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_rows_with_no_live_key_are_zero(t, dtype):
+    """window 4 at q_offset 40 over 16 keys masks every row: no tile is
+    live, the producer loads nothing and both consumers wait on nothing
+    (the tensor-core kernel), and every row is 0. At T = 200 the later
+    rows see no key either; with the causal mask off they see all."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(t)
+    q = torch.randn((10, t, 128), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((2, 16, 128), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    kernel = "tc" if dtype == torch.bfloat16 else "fma"
+    got = _check_kernel(q, k, v, kernel, window=4, q_offset=40)
+    assert bool((got == 0).all())
+    got = _check_kernel(q, k, v, kernel, window=4, q_offset=40, causal=False)
+    assert bool((got == 0).all())
+    got = _check_kernel(q, k, v, kernel, window=60, q_offset=40)
+    assert bool((got[:, :7] != 0).any(-1).all())     # rows 40..46 see keys
+    assert bool((got[:, 35:] == 0).all())            # rows 75.. see none
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_long_window(dtype):
+    """[2, 8,192, 120] with window 4,096 (danube's): every row past 4,096
+    is cut by the window and the tiles behind it are never visited."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(4096)
+    q, k, v = (torch.randn((2, 8192, 120), generator=gen, device=dev).to(
+        dtype) for _ in range(3))
+    _check_kernel(q, k, v, "tc" if dtype == torch.bfloat16 else "fma",
+                  window=4096)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_picks_the_kernel_by_shape():
     """MLA prefill's heads ([B*16, 2048, 192] bf16) go to the tensor-core
@@ -445,3 +535,9 @@ def test_cuda_wrappers_raise_on_bad_operands():
     q = torch.randn((2, 10, 32), device=dev)
     with pytest.raises(ValueError, match="bf16"):
         attention.flash_attention_cuda(q, q.bfloat16(), q)
+    kv = torch.randn((3, 10, 32), device=dev)
+    with pytest.raises(ValueError, match="dividing"):
+        attention.flash_attention_cuda(torch.randn((4, 10, 32), device=dev),
+                                       kv, kv)
+    with pytest.raises(ValueError, match=">= 0"):
+        attention.flash_attention_cuda(q, q, q, window=-1)

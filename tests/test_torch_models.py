@@ -134,16 +134,13 @@ def test_apply_rope_matches_reference(batched_pos):
 ])
 @pytest.mark.parametrize("kv", [4, 2])
 def test_blockwise_attn_matches_reference(kw, kv):
-    """Causal and full masks from position 0 with KV == H (MLA's) match the
-    reference, whose block sizes and block skipping change no result;
-    windows, prefixes, offsets and grouped heads raise (ROADMAP.md)."""
+    """Causal and full masks, windows, prefixes and offsets, with KV == H
+    (MLA's) and grouped heads, match the reference, whose block sizes and
+    block skipping change no result (tests/test_torch_gqa.py covers the
+    masks in full)."""
     q, k, v = _np((2, 37, 4, 16), 5), _np((2, 37, kv, 16), 6), \
         _np((2, 37, kv, 16), 7)
     port_kw = {n: x for n, x in kw.items() if n != "skip_masked_blocks"}
-    if kv != 4 or set(port_kw) - {"causal"}:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            L.blockwise_attn(_t(q), _t(k), _t(v), **port_kw)
-        return
     got = L.blockwise_attn(_t(q), _t(k), _t(v), **port_kw)
     want = RL.blockwise_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                              block_q=16, block_k=8, **kw)
@@ -401,16 +398,24 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_branches_raise():
+    """The recurrent kinds, their architectures and training still raise;
+    the GQA layer and the int8 KV cache build."""
     cfg = reduced_config(ARCH)
-    gqa = dataclasses.replace(cfg, pattern=(T.LayerSpec("attn", "glu"),))
-    for bad in (gqa, dataclasses.replace(cfg, kv_quant=True),
-                dataclasses.replace(cfg, pattern=(T.LayerSpec("mamba"),))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.init_params(bad, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen3_14b")
+        T.init_params(dataclasses.replace(
+            cfg, pattern=(T.LayerSpec("mamba"),)), device="cpu")
+    for arch in ("jamba_v01_52b", "xlstm_350m"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.train_step()
+    gqa = dataclasses.replace(cfg, pattern=(T.LayerSpec("attn", "glu"),),
+                              n_kv_heads=2, head_dim=32, kv_quant=True)
+    T.init_params(gqa, device="cpu")
+    cache = T.init_cache(gqa, 1, 4, device="cpu")
+    assert cache["periods"]["0"]["k"].dtype == torch.int8
+    assert cache["periods"]["0"]["ks"].dtype == torch.bfloat16
+    assert get_config("qwen3_14b").n_kv_heads == 8
 
 
 def test_params_from_reference_checks_keys_and_shapes(reduced_pair):
@@ -443,10 +448,12 @@ def test_cuda_blockwise_attn_launches_the_kernel():
     got = L.blockwise_attn(q.to(dev), k.to(dev), v.to(dev))
     assert port_attention.FMA_LAUNCHES == before + 1
     _close(got.cpu(), L.blockwise_attn(q, k, v), 1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L.blockwise_attn(q.to(dev), k.to(dev), v.to(dev), window=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L.blockwise_attn(q.to(dev), k[:, :, :1].to(dev), v[:, :, :1].to(dev))
+    # a window and grouped heads (one KV head for three) on the same kernel
+    for kw, kk, vv in (({"window": 8}, k, v),
+                       ({"q_offset": 9}, k[:, :, :1], v[:, :, :1])):
+        got = L.blockwise_attn(q.to(dev), kk.to(dev), vv.to(dev), **kw)
+        _close(got.cpu(), L.blockwise_attn(q, kk, vv, **kw), 1e-5)
+    assert port_attention.FMA_LAUNCHES == before + 3
 
 
 @pytest.mark.cuda
