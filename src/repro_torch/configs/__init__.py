@@ -1,8 +1,7 @@
 """Architecture registry of the port: get_config / reduced_config for the
-architectures it runs (the reference's `repro.configs`), in the
-reference's order. Each module defines CONFIG (full size) and REDUCED
-(CPU tests), field for field the reference's; the recurrent
-architectures (jamba, xlstm) are queued (ROADMAP.md Queue 1).
+reference's ten architectures (the reference's `repro.configs`), in its
+order. Each module defines CONFIG (full size) and REDUCED (CPU tests),
+field for field the reference's.
 """
 
 from __future__ import annotations
@@ -16,8 +15,10 @@ ARCHS = [
     "granite_3_8b",
     "deepseek_v2_lite_16b",
     "dbrx_132b",
+    "xlstm_350m",
     "paligemma_3b",
     "musicgen_large",
+    "jamba_v01_52b",
 ]
 
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
@@ -28,9 +29,7 @@ __all__ = ["ARCHS", "get_config", "list_archs", "reduced_config"]
 def _module(name: str):
     name = ALIASES.get(name, name).replace("-", "_").replace(".", "")
     if name not in ARCHS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP.md Queue 1); "
-            f"ported: {ARCHS}")
+        raise ValueError(f"unknown architecture {name!r}; known: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -55,7 +55,7 @@ class Params(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self._std: dict[str, float | None] = {}
+        self._init: dict[str, tuple] = {}
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -63,24 +63,28 @@ class Params(nn.Module):
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
 
-    def add(self, name: str, shape, std: float | None, *, dtype, device):
-        """Register parameter `name`; `std` is its normal draw's scale, or
-        None for a norm scale of ones."""
+    def add(self, name: str, shape, std: float | None, *, dtype, device,
+            mean: float = 0.0, fill=1.0):
+        """Register parameter `name`, drawn N(mean, std^2); or, with `std`
+        None, a constant: `fill`, a number (default ones, a norm scale) or
+        a float32 tensor broadcast to the shape and cast to the dtype."""
         t = torch.empty(tuple(shape), dtype=dtype, device=device)
         self.register_parameter(name, nn.Parameter(t, requires_grad=False))
-        self._std[name] = std
+        self._init[name] = (std, mean, fill)
 
     def draw_(self, generator: torch.Generator):
         """Draw every parameter, children first in registration order:
-        N(0, std^2) in the parameter's dtype, or ones."""
+        N(mean, std^2) in the parameter's dtype, or its constant."""
         for child in self.children():
             child.draw_(generator)
-        for name, std in self._std.items():
+        for name, (std, mean, fill) in self._init.items():
             p = self._parameters[name]
-            if std is None:
-                p.fill_(1.0)
+            if std is not None:
+                p.normal_(mean, std, generator=generator)
+            elif torch.is_tensor(fill):
+                p.copy_(fill)
             else:
-                p.normal_(0.0, std, generator=generator)
+                p.fill_(fill)
         return self
 
 

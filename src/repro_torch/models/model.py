@@ -1,8 +1,10 @@
 """Serving step functions over a `ModelConfig` (the reference's
-`models/model.py`): `prefill_step` fills the cache from a batch of
-prompts and returns the last position's logits; `decode_step` runs one
-token against the cache. The cache is updated in place (the reference
-donates it). `train_step` is queued (ROADMAP.md Queue 1).
+`models/model.py`), for all ten of its architectures: `prefill_step`
+fills the cache from a batch of prompts and returns the last position's
+logits; `decode_step` runs one token against the cache. The cache (KV
+positions, MLA's compressed latents, and the recurrent layers' conv and
+scan state) is updated in place (the reference donates it). `train_step`
+is queued (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations

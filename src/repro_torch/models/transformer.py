@@ -1,9 +1,10 @@
 """Period-structured decoder stack (the reference's
-`models/transformer.py`), for the kinds this port runs: GQA attention
-(`attn`: full or sliding-window, a full, ring-buffer or int8 cache) and
-MLA attention, each with a GLU, non-gated ("dense"), MoE or no
-feed-forward; token or embedded inputs; a bidirectional prefix
-(prefix-LM); one or several output heads.
+`models/transformer.py`) over every layer kind it has: GQA attention
+(`attn`: full or sliding-window, a full, ring-buffer or int8 cache), MLA
+attention, and the recurrent mixers (`models/ssm.py`: `mamba`, `mlstm`,
+`slstm`, under the reference's key "mixer"), each with a GLU, non-gated
+("dense"), MoE or no feed-forward; token or embedded inputs; a
+bidirectional prefix (prefix-LM); one or several output heads.
 
 A model is `prefix_pattern` (irregular leading layers, e.g. DeepSeek's
 dense layer 0) followed by `num_periods` repetitions of `pattern`. The
@@ -11,10 +12,8 @@ reference stacks the periods' parameters on axis 0 for `lax.scan`; here
 each period is a module of its own ("periods"/"<p>"/"<i>") and a Python
 loop runs them. The cache keeps the reference's layout: the periods'
 caches stacked on axis 0, updated in place (standing in for JAX's buffer
-donation).
-
-The recurrent kinds (`mamba`, `mlstm`, `slstm`) raise
-NotImplementedError (ROADMAP.md Queue 1).
+donation): every layer writes its cache views, the recurrent layers
+their conv and scan state too.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import Children, Params
 
 __all__ = ["LayerSpec", "ModelConfig", "compute_logits", "embed_lookup",
@@ -58,8 +58,8 @@ class ModelConfig:
     act: str = "silu"
     mla: Any = None           # layers.MLAConfig
     moe: Any = None           # moe.MoEConfig
-    mamba: Any = None         # ssm.MambaConfig (the layer: ROADMAP.md Queue 1)
-    xlstm: Any = None         # ssm.XLSTMConfig (the layer: ROADMAP.md Queue 1)
+    mamba: Any = None         # ssm.MambaConfig
+    xlstm: Any = None         # ssm.XLSTMConfig
     embed_inputs: bool = True
     num_output_heads: int = 1
     prefix_lm: bool = False   # bidirectional prefix (paligemma)
@@ -90,14 +90,12 @@ class ModelConfig:
         return list(self.prefix_pattern) + list(self.pattern) * self.num_periods
 
 
-def _queued(what: str):
-    return NotImplementedError(f"{what} is not ported yet "
-                               f"(ROADMAP.md Queue 1)")
+KINDS = ("attn", "mla", "mamba", "mlstm", "slstm")
 
 
 def _check(spec: LayerSpec, cfg: ModelConfig):
-    if spec.kind not in ("attn", "mla"):
-        raise _queued(f"layer kind {spec.kind!r}")
+    if spec.kind not in KINDS:
+        raise ValueError(f"layer kind {spec.kind!r}")
     if spec.ffn not in ("glu", "dense", "moe", "none"):
         raise ValueError(f"feed-forward {spec.ffn!r}")
 
@@ -116,9 +114,15 @@ def _layer_init(spec: LayerSpec, cfg: ModelConfig, device) -> Params:
         p.add_module("attn", L.attn_init(cfg.d_model, cfg.n_heads,
                                          cfg.n_kv_heads, cfg.head_dim,
                                          qk_norm=cfg.qk_norm, **kw))
-    else:
+    elif spec.kind == "mla":
         p.add_module("attn", L.mla_init(cfg.d_model, cfg.n_heads, cfg.mla,
                                         **kw))
+    elif spec.kind == "mamba":
+        p.add_module("mixer", S.mamba_init(cfg.d_model, cfg.mamba, **kw))
+    elif spec.kind == "mlstm":
+        p.add_module("mixer", S.mlstm_init(cfg.d_model, cfg.xlstm, **kw))
+    else:
+        p.add_module("mixer", S.slstm_init(cfg.d_model, cfg.xlstm, **kw))
     if spec.ffn in ("glu", "dense"):
         p.add("ln2", (cfg.d_model,), None, **kw)
         p.add_module("ffn", L.mlp_init(cfg.d_model, cfg.d_ff, spec.ffn, **kw))
@@ -131,11 +135,17 @@ def _layer_init(spec: LayerSpec, cfg: ModelConfig, device) -> Params:
 def _layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int, s_max: int,
                  dtype, device) -> dict:
     _check(spec, cfg)
+    kw = {"dtype": dtype, "device": device}
     if spec.kind == "attn":
         return L.attn_cache_init(batch, s_max, cfg.n_kv_heads, cfg.head_dim,
-                                 window=spec.window, dtype=dtype,
-                                 quant=cfg.kv_quant, device=device)
-    return L.mla_cache_init(batch, s_max, cfg.mla, dtype=dtype, device=device)
+                                 window=spec.window, quant=cfg.kv_quant, **kw)
+    if spec.kind == "mla":
+        return L.mla_cache_init(batch, s_max, cfg.mla, **kw)
+    if spec.kind == "mamba":
+        return S.mamba_cache_init(batch, cfg.d_model, cfg.mamba, **kw)
+    if spec.kind == "mlstm":
+        return S.mlstm_cache_init(batch, cfg.d_model, cfg.xlstm, **kw)
+    return S.slstm_cache_init(batch, cfg.d_model, cfg.xlstm, **kw)
 
 
 def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, *, mode, cache,
@@ -147,10 +157,19 @@ def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, *, mode, cache,
             p["attn"], h, mode=mode, cache=cache, pos=pos, window=spec.window,
             prefix_len=prefix_len if cfg.prefix_lm else None,
             rope_theta=cfg.rope_theta)
-    else:
+    elif spec.kind == "mla":
         h, new_cache = L.mla_apply(
             p["attn"], h, mode=mode, cache=cache, pos=pos, mla=cfg.mla,
             rope_theta=cfg.rope_theta)
+    elif spec.kind == "mamba":
+        h, new_cache = S.mamba_apply(p["mixer"], h, mode=mode, cache=cache,
+                                     pos=pos, mc=cfg.mamba)
+    elif spec.kind == "mlstm":
+        h, new_cache = S.mlstm_apply(p["mixer"], h, mode=mode, cache=cache,
+                                     pos=pos, xc=cfg.xlstm)
+    else:
+        h, new_cache = S.slstm_apply(p["mixer"], h, mode=mode, cache=cache,
+                                     pos=pos, xc=cfg.xlstm)
     x = x + h
     if "ffn" in p:
         x = x + L.mlp_apply(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
