@@ -364,6 +364,46 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                kernels launched), flash attention, the decode attention,
                the router kernel, the expert einsums, the rest, and the
                idle share.
+  11. train  — the training path (models/model.py train_step: forward,
+               chunked-vocab loss, backward, AdamW), last, after the ssm
+               phase's models are freed: deepseek-v2-lite-16b at full
+               width (d 2,048, 16 MLA heads at hd 192, 64 routed experts
+               + 2 shared, top-6, vocab 102,400), its router through the
+               topk kernel, cut to the dense prefix layer + 2 MoE periods
+               (3 of 27 layers, 1.67 B parameters; a whole train state of
+               15.7 B does not fit one card), bf16 parameters drawn on
+               the card from the seed. (a) the differentiable flash op's
+               output (the kernel: tensor cores in bf16, FMA in float32)
+               within FLASH_TOL of flash_attention_ref on the same inputs,
+               and its gradients (a plain recompute a query block at a
+               time) against torch.autograd.grad
+               through flash_attention_ref over the whole sequence: MLA's
+               [16, 4,096, 192] causal, qwen3's q [40, 4,096, 128] over 8
+               KV heads, danube's 4,096 window at T = 5,120, paligemma's
+               256-key prefix (q [8, 4,096, 256] over one KV head), each
+               in float32 and bf16 within TRAIN_GRAD_TOL, and the op's
+               backward alone at MLA's shape (device ms, a call's ms with
+               host work, a backward kernel's bound); (b) one float32
+               forward and backward at full width and this depth (B=1,
+               T=512), the kernels against their plain versions
+               (swapped_ops): loss and every gradient within 2e-3;
+               (c) B=2 x T=4,096 (configs/shapes.py's train_4k length),
+               grad_accum 2 (two microbatches into the float32
+               accumulator): one warm-up step, then 5 timed steps (to
+               torch.cuda.synchronize()) with the flash and topk launch
+               counters set to 0 just before and read just after
+               (tensor-core flash and select_k_short.cu > 0); p50 / p99
+               step ms, tokens/s, peak GiB, the loss finite, grad_norm
+               finite and > 0, every weight matrix changed; then one
+               profiled step: device ms of the forward, the attention
+               backward (the recompute), the rest of the backward and the
+               optimizer, and the idle share (1 - device ms / the
+               unprofiled p50); (d) three steps run twice
+               from the same generator give bitwise-equal parameters, m
+               and v; (e) a TrainLoop on DeepSeek's REDUCED config in
+               bf16 runs 8 steps and dies at step 5; resumed, its
+               parameters equal an uninterrupted run's bitwise, and the
+               GC keeps `keep` steps.
 
 Each serving path prints QPS and p50/p99 per 256-query batch. The line
 before the last is {"kernels": [...]} with each kernel's launches on its
@@ -522,6 +562,29 @@ BF16_D_TOL = {JAMBA_ARCH: 0.16}
 # least with either fault on the card's side. Each limit is twice the
 # largest sound reading, 7x and 56x below the faults'.
 XLSTM_F32_TOL = {"(c)": 0.35, "cpu": 0.042}
+# the train phase: deepseek-v2-lite-16b at full width, TRAIN_PERIODS MoE
+# periods after its dense layer, B x T tokens a step in TRAIN_ACCUM
+# microbatches, TRAIN_STEPS timed steps after one warm-up, (b)'s float32
+# batch, (d)'s steps, (e)'s TrainLoop (steps, death, checkpoint keep)
+TRAIN_PERIODS, TRAIN_B, TRAIN_T, TRAIN_ACCUM, TRAIN_STEPS = 2, 2, 4096, 2, 5
+TRAIN_F32_BT, TRAIN_DET_STEPS, TRAIN_LOOP = (1, 512), 3, (8, 5, 2)
+# (a) the flash op's gradients against autograd through the plain version
+# over the whole sequence: |d| <= rel x |want| + abs x max |want|. The op
+# recomputes a query block at a time through the same plain version, so
+# dq is the same arithmetic and dk, dv sum a key's G x T rows (up to
+# 20,480) by block, in another order: float32 within that rounding (an
+# H100 80GB HBM3 at 700 W read 3e-6 and 4e-6 of max |want| at MLA's and
+# qwen3's dk); bf16 one bf16 rounding of a float32 value that differs by
+# that (one bf16 spacing of the largest entry; MLA read 1.5e-3)
+TRAIN_GRAD_TOL = {torch.float32: (1e-5, 1e-5),
+                  torch.bfloat16: (2.0 ** -7, 2.0 ** -8)}
+# (a)'s cases: (name, (BH, BKV, T, hd, V's live columns), mask)
+TRAIN_FLASH_CASES = (("MLA", (16, 16, 4096, 192, 128), {}),
+                     ("qwen3", (40, 8, 4096, 128, 128), {}),
+                     ("danube window", (32, 8, 5120, 120, 120),
+                      {"window": 4096}),
+                     ("paligemma prefix", (8, 1, 4096, 256, 256),
+                      {"prefix_len": 256}))
 
 
 def check(cond, msg: str) -> None:
@@ -4610,6 +4673,360 @@ def ssm_phase(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def train_config(**replace):
+    """deepseek-v2-lite-16b as `lm_config()` gives it (the router through
+    the topk kernel), TRAIN_PERIODS periods, TRAIN_ACCUM microbatches."""
+    import dataclasses
+
+    return dataclasses.replace(lm_config(), num_periods=TRAIN_PERIODS,
+                               grad_accum=TRAIN_ACCUM, **replace)
+
+
+def train_flash_checks(g):
+    """(a) the differentiable flash op on the card at the training shapes
+    of MLA, qwen3 (G = 5), danube's window and paligemma's prefix, float32
+    and bf16: its output (the kernel: tensor cores in bf16, FMA in float32)
+    within FLASH_TOL of flash_attention_ref on the same inputs, and its
+    dq, dk, dv (the plain recompute, 512 query rows at a time) against
+    torch.autograd.grad through flash_attention_ref over the whole
+    sequence; times the backward at MLA's bf16 shape
+    (`train_flash_bwd_timing`). Returns each kernel row's largest forward
+    |d|."""
+    from repro_torch.kernels import attention, ops
+
+    fwd = {"flash_attention": 0.0, "flash_attention_fma": 0.0}
+    for name, (bh, bkv, t, hd, vd), kw in TRAIN_FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((bh, t, hd), generator=g, device=DEVICE)
+            k, v = (torch.randn((bkv, t, hd), generator=g, device=DEVICE)
+                    for _ in range(2))
+            v[..., vd:] = 0.0                  # MLA's V padded to hd
+            w = torch.randn((bh, t, hd), generator=g, device=DEVICE)
+            q, k, v = (x.to(dtype).requires_grad_() for x in (q, k, v))
+            before = flash_counts()
+            out = ops.flash_attention_differentiable(q, k, v, **kw)
+            got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+            took = [a - b for a, b in zip(flash_counts(), before)]
+            check(took == ([1, 0] if dtype == torch.bfloat16 else [0, 1]),
+                  f"train flash {name} {dtype}: launches {took}")
+            ref = attention.flash_attention_ref(q, k, v, **kw)
+            o, r = out.detach().float(), ref.detach().float()
+            rel, absol = FLASH_TOL[dtype]
+            d_out = float((o - r).abs().max())
+            kernel = ("flash_attention" if dtype == torch.bfloat16
+                      else "flash_attention_fma")
+            tol = rel * torch.maximum(o.abs(), r.abs()) + absol
+            check(bool(((o - r).abs() <= tol).all()),
+                  f"train flash {name} {dtype}: the {kernel} kernel's "
+                  f"output beyond {rel:g} x |out| + {absol:g} of its plain "
+                  f"version (max |d| {d_out:.3g})")
+            fwd[kernel] = max(fwd[kernel], d_out)
+            del o, r, tol
+            want = torch.autograd.grad((ref.float() * w).sum(), (q, k, v))
+            rel, absol = TRAIN_GRAD_TOL[dtype]
+            errs = []
+            for label, a, b in zip("qkv", got, want):
+                a, b = a.float(), b.float()
+                top = float(b.abs().max())
+                d = (a - b).abs()
+                check(bool((d <= rel * b.abs() + absol * top).all()),
+                      f"train flash {name} {dtype}: d{label} beyond "
+                      f"{rel:g} |want| + {absol:g} max |want| (max |d| "
+                      f"{float(d.max()):.3g}, max |want| {top:.3g})")
+                errs.append(float(d.max()) / top)
+            log(f"[train] (a) flash op, {name} q {[bh, t, hd]} over k, v "
+                f"{[bkv, t, hd]} {dtype} {kw or 'causal'}: the output "
+                f"({kernel} kernel) within FLASH_TOL of the plain version "
+                f"(max |d| {d_out:.3g}); dq, dk, dv within {rel:g} |want| "
+                f"+ {absol:g} max |want| of autograd through the plain version over the whole "
+                f"sequence (max |d| / max |want| {errs[0]:.3g}, "
+                f"{errs[1]:.3g}, {errs[2]:.3g})")
+            if name == "MLA" and dtype == torch.bfloat16:
+                train_flash_bwd_timing(q, k, v, w)
+            del q, k, v, w, out, got, ref, want
+    torch.cuda.empty_cache()
+    return fwd
+
+
+def train_flash_bwd_timing(q, k, v, dout) -> None:
+    """The flash op's backward (the plain recompute) alone at MLA's
+    training shape, one microbatch's layer: device ms (torch.profiler)
+    and a call's ms with host work (CUDA events), beside the bound of a
+    backward kernel: the recompute of q.k^T and the products dV, dP, dQ,
+    dK over the causal pairs at the bf16 tensor cores, or q, k, v, dout
+    read and dq, dk, dv written once."""
+    from repro_torch.kernels import attention
+
+    bh, t, hd = q.shape
+    fn = lambda: attention.flash_attention_vjp(  # noqa: E731
+        q.detach(), k.detach(), v.detach(), dout.to(q.dtype))
+    # one call a trace: reading back a trace of its ~3,000 kernels and
+    # ~10,000 host events takes seconds
+    dev = device_ms(fn, reps=1, traces=1)
+    events = median_ms(fn, reps=3)
+    pairs = bh * t * (t + 1) / 2
+    bound_ms, bound_by = bound(7 * bh * t * hd * q.element_size(),
+                               5 * 2.0 * hd * pairs, BF16_FLOPS)
+    log(f"[train] (a) the flash op's backward (plain recompute, 512 query "
+        f"rows a block) at q, k, v [{bh}, {t}, {hd}] bf16 causal: device "
+        f"{dev:.2f} ms, events {events:.2f} ms a call; a backward kernel's "
+        f"bound {bound_ms:.4f} ms ({bound_by}: 5 products of "
+        f"{2.0 * hd * pairs / 1e9:.1f} GFLOP at the bf16 tensor cores)")
+
+
+def train_f32_check(g) -> None:
+    """(b) one float32 forward and backward at full width and the phase's
+    depth, B x T = TRAIN_F32_BT: the kernels (FMA flash, select_k_short)
+    against their plain versions on the card, loss and every gradient
+    within 2e-3 (the reference's own tolerance)."""
+    from repro_torch.kernels import attention, topk
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.transformer import init_params
+
+    cfg = train_config(param_dtype=torch.float32)
+    model = init_params(cfg, device=DEVICE, generator=g)
+    model.requires_grad_(True)
+    b, t = TRAIN_F32_BT
+    toks = torch.randint(0, cfg.vocab_size, (b, t + 1), generator=g,
+                         device=DEVICE)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    names, params = zip(*model.named_parameters())
+    runs = []
+    for swap in ({}, {"flash_fn": attention.flash_attention_ref,
+                      "topk_fn": topk.topk_ref}):
+        with swapped_ops(**swap):
+            before = launch_counts()
+            loss, _ = loss_fn(model, cfg, batch)
+            grads = torch.autograd.grad(loss, params)
+            took = [a - b for a, b in zip(launch_counts(), before)]
+        runs.append((loss.detach(), grads, took))
+    (l_k, g_k, took_k), (l_p, g_p, took_p) = runs
+    check(took_k[1] > 0 and took_k[2] > 0 and took_p == [0, 0, 0, 0],
+          f"train (b): launches kernels {took_k}, plain {took_p}")
+    worst = abs(float(l_k) - float(l_p))
+    check(worst <= 2e-3 + 2e-3 * abs(float(l_p)),
+          f"train (b): loss {float(l_k)} against {float(l_p)}")
+    for name, a, w in zip(names, g_k, g_p):
+        d = (a - w).abs()
+        check(bool((d <= 2e-3 + 2e-3 * w.abs()).all()),
+              f"train (b): gradient {name} beyond 2e-3 (max |d| "
+              f"{float(d.max()):.3g})")
+        worst = max(worst, float(d.max()))
+    log(f"[train] (b) float32 at full width, {cfg.num_layers} layers, "
+        f"B={b} x T={t}: loss {float(l_k):.6f} (kernels) against "
+        f"{float(l_p):.6f} (plain flash and topk), {len(names)} gradient "
+        f"leaves within 2e-3 (max |d| {worst:.3g}); kernel launches "
+        f"(flash tc, flash fma, topk, topk_stream) {took_k}")
+    del model, runs, g_k, g_p
+    torch.cuda.empty_cache()
+
+
+def train_state_snapshot(state) -> dict:
+    """The parameters, m and v of a train state, copied to the host."""
+    out = {f"p.{n}": p.detach().to("cpu", copy=True)
+           for n, p in state["params"].named_parameters()}
+    for key in ("m", "v"):
+        out.update({f"{key}.{n}": t.to("cpu", copy=True)
+                    for n, t in state["opt"][key].items()})
+    return out
+
+
+def train_timed(cfg, g) -> dict:
+    """(c) TRAIN_B x TRAIN_T a step in TRAIN_ACCUM microbatches: one
+    warm-up step, TRAIN_STEPS timed steps with the launch counters set to
+    0 just before and read just after, then one profiled step."""
+    from repro_torch.kernels import attention, topk
+    from repro_torch.models.model import make_train_state, train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    opt = AdamWConfig(total_steps=100, warmup_steps=2)
+    t0 = time.perf_counter()
+    state = make_train_state(cfg, opt, device=DEVICE, generator=g)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in state["params"].parameters())
+    log(f"[train] {cfg.name}: {cfg.num_layers} of 27 layers at full width, "
+        f"{n / 1e9:.3f} B parameters (bf16) with float32 m and v drawn on "
+        f"the card in {time.perf_counter() - t0:.1f}s")
+
+    def batch(step: int):
+        toks = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_T + 1),
+                             generator=g, device=DEVICE)
+        return {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+
+    # every weight matrix, on the host so that the card's peak is the
+    # step's (a bf16 norm scale of ones may round back to ones)
+    first = {n: p.detach().to("cpu", copy=True) for n, p in
+             state["params"].named_parameters() if p.dim() >= 2}
+    state, m = train_step(state, batch(0), cfg, opt)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batches = [batch(i + 1) for i in range(TRAIN_STEPS)]
+    attention.TC_LAUNCHES = attention.FMA_LAUNCHES = 0
+    topk.SHORT_LAUNCHES = topk.LAUNCHES = 0
+    times, losses, norms = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = train_step(state, b, cfg, opt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches[0] > 0 and launches[2] > 0 and launches[1] == 0
+          and launches[3] == 0,
+          f"train (c): launches (flash tc, flash fma, topk, topk_stream) "
+          f"{launches}; expected the tensor-core flash and select_k_short "
+          f"only")
+    check(all(np.isfinite(losses)) and all(np.isfinite(x) and x > 0
+                                           for x in norms),
+          f"train (c): loss {losses}, grad_norm {norms}")
+    moved = [n for n, p in state["params"].named_parameters()
+             if n in first and not torch.equal(p, first[n].to(p.device))]
+    check(len(moved) == len(first), f"train (c): parameters unchanged: "
+          f"{sorted(set(first) - set(moved))}")
+    log(f"[train] (c) all {len(first)} weight matrices changed")
+    del first
+    p50, p99 = float(np.percentile(times, 50)), float(np.percentile(times,
+                                                                    99))
+    tokens = TRAIN_B * TRAIN_T
+    log(f"[train] (c) {TRAIN_STEPS} timed steps of B={TRAIN_B} x T="
+        f"{TRAIN_T} ({TRAIN_ACCUM} microbatches) bf16: p50 {p50:.1f} ms, "
+        f"p99 {p99:.1f} ms ({', '.join(f'{x:.1f}' for x in times)}), "
+        f"{tokens / p50 * 1e3:.0f} tokens/s, peak {peak:.2f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, grad_norm {norms[-1]:.4f}; "
+        f"launches (flash tc, flash fma, topk, topk_stream) {launches} "
+        f"({launches[0] // TRAIN_STEPS} flash and {launches[2] // TRAIN_STEPS} "
+        f"topk a step)")
+    # the backward runs on autograd's device thread, outside the caller's
+    # ranges: it is the step's device time less the forward and the
+    # optimizer (the accumulator's adds count with it); the attention
+    # backward's range is opened on that thread. Every range the path
+    # opens is named, so that its device-side annotation is not counted
+    # as a kernel
+    ranges = ("train.forward", "attn.backward", "train.optimizer",
+              "moe.experts")
+    b = batch(TRAIN_STEPS + 1)
+    split = profile_split(lambda: train_step(state, b, cfg, opt), ranges)
+    split["attn_bwd_ms"] = split["attn.backward"]
+    split["rest_bwd_ms"] = (split["device_ms"] - split["train.forward"]
+                            - split["train.optimizer"] - split["attn_bwd_ms"])
+    log(f"[train] (c) split of one step (torch.profiler, device ms): "
+        f"forward {split['train.forward']:.1f}, attention backward (plain "
+        f"recompute) {split['attn_bwd_ms']:.1f}, rest of the backward "
+        f"(the periods' recompute and the accumulator included) "
+        f"{split['rest_bwd_ms']:.1f}, "
+        f"optimizer {split['train.optimizer']:.1f}; the expert einsums "
+        f"(forward and recompute) {split['moe.experts']:.1f}, flash kernel "
+        f"{split['attention_ms']:.1f}, router topk kernel "
+        f"{split['router_ms']:.3f}; device busy {split['device_ms']:.1f} ms, "
+        f"idle share {1 - split['device_ms'] / p50:.3f} of the unprofiled "
+        f"p50 step ({1 - split['device_ms'] / split['wall_ms']:.3f} of the "
+        f"profiled step's {split['wall_ms']:.1f} ms wall, which the "
+        f"profiler lengthens), {split['kernels']} kernels")
+    log(f"[train]   kernels with the most device time: " + "; ".join(
+        f"{name[:70]} {us / 1e3:.3f} ms" for name, us in split["top"]))
+    check(split["attn_bwd_ms"] > 0 and split["train.optimizer"] > 0,
+          "train (c): the profiler saw no attention backward or optimizer")
+    del state
+    torch.cuda.empty_cache()
+    return {"p50_ms": p50, "p99_ms": p99, "tokens_per_s": tokens / p50 * 1e3,
+            "peak_gib": peak, "launches": launches, "split": split}
+
+
+def train_determinism(cfg, seed: int) -> None:
+    """(d) TRAIN_DET_STEPS steps from the same generator, twice: bitwise
+    equal parameters, m and v."""
+    from repro_torch.models.model import make_train_state, train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    opt = AdamWConfig(total_steps=100, warmup_steps=2)
+    snaps = []
+    for _ in range(2):
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        state = make_train_state(cfg, opt, device=DEVICE, generator=g)
+        for _ in range(TRAIN_DET_STEPS):
+            toks = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_T + 1),
+                                 generator=g, device=DEVICE)
+            state, _ = train_step(state, {"inputs": toks[:, :-1],
+                                          "labels": toks[:, 1:]}, cfg, opt)
+        snaps.append(train_state_snapshot(state))
+        del state
+        torch.cuda.empty_cache()
+    differ = [n for n in snaps[0] if not torch.equal(snaps[0][n],
+                                                       snaps[1][n])]
+    check(not differ, f"train (d): {len(differ)} leaves differ between two "
+          f"runs from one generator: {differ[:6]}")
+    log(f"[train] (d) {TRAIN_DET_STEPS} steps twice from one generator: "
+        f"{len(snaps[0])} leaves (parameters, m, v) bitwise equal")
+
+
+def train_restart(tmp: str) -> None:
+    """(e) a TrainLoop on DeepSeek's REDUCED config in bf16 dies and
+    resumes bitwise; the GC keeps `keep` steps."""
+    import dataclasses
+
+    from repro_torch.checkpoint import list_steps
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import make_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import TrainLoop, TrainLoopConfig
+
+    cfg = dataclasses.replace(reduced_config(LM_ARCH),
+                              param_dtype=torch.bfloat16)
+    opt = AdamWConfig(lr=1e-3, total_steps=20, warmup_steps=1)
+    steps, die, keep = TRAIN_LOOP
+
+    def loop(d):
+        return TrainLoop(cfg, opt, TrainLoopConfig(
+            ckpt_dir=d, ckpt_every=1, keep=keep, log_every=100),
+            lambda s: make_batch(cfg, "train", 64, 2, step=s),
+            log=lambda *a: None, device=DEVICE)
+
+    ref, _ = loop(f"{tmp}/train-a").run(steps)
+    try:
+        loop(f"{tmp}/train-b").run(steps, die_at_step=die)
+        check(False, "train (e): the run did not die")
+    except RuntimeError as e:
+        check("simulated node failure" in str(e), f"train (e): {e}")
+    resumed = loop(f"{tmp}/train-b")
+    check(resumed.step == die, f"train (e): resumed at {resumed.step}")
+    got, _ = resumed.run(steps)
+    differ = [n for (n, a), b in zip(ref["params"].named_parameters(),
+                                     got["params"].parameters())
+              if not torch.equal(a, b)]
+    kept = list_steps(f"{tmp}/train-b", committed_only=False)
+    check(not differ and kept == list(range(steps - keep + 1, steps + 1)),
+          f"train (e): {len(differ)} leaves differ, steps kept {kept}")
+    log(f"[train] (e) TrainLoop, {cfg.name} REDUCED bf16: died at step "
+        f"{die}, resumed, {steps} steps bitwise equal to an uninterrupted "
+        f"run; checkpoints kept {kept}")
+
+
+def train_phase(seed: int) -> dict:
+    """11. training DeepSeek-V2-Lite at full width on the card."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t_phase = time.perf_counter()
+    fwd_err = train_flash_checks(g)
+    log(f"[train] (a) {time.perf_counter() - t_phase:.1f}s into the phase")
+    train_f32_check(g)
+    log(f"[train] (b) {time.perf_counter() - t_phase:.1f}s into the phase")
+    cfg = train_config()
+    out = train_timed(cfg, g)
+    log(f"[train] (c) {time.perf_counter() - t_phase:.1f}s into the phase")
+    train_determinism(cfg, seed + 1)
+    log(f"[train] (d) {time.perf_counter() - t_phase:.1f}s into the phase")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_restart(tmp)
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f}s")
+    out["fwd_err"] = fwd_err
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+
 def kernel_row(name, source, replaces, launches, err, timing, bound_by):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -4623,11 +5040,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernel,main,quant,csd,cost,serve,ingest,"
-                            "cluster,scan,lm,dense,ssm",
+                            "cluster,scan,lm,dense,ssm,train",
                     help="comma list of kernel,main,quant,csd,cost,serve,"
-                         "ingest,cluster,scan,lm,dense,ssm (card and build "
-                         "always run; serve and cost need csd, csd needs "
-                         "quant, quant, ingest and cluster need main)")
+                         "ingest,cluster,scan,lm,dense,ssm,train (card and "
+                         "build always run; serve and cost need csd, csd "
+                         "needs quant, quant, ingest and cluster need main)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -4763,6 +5180,11 @@ def main(argv=None) -> int:
     if "ssm" in phases:
         torch.cuda.empty_cache()
         ssm = ssm_phase(seed=0)
+    # 11. train, after the ssm phase's models are freed
+    trained = None
+    if "train" in phases:
+        torch.cuda.empty_cache()
+        trained = train_phase(seed=0)
 
     csrc = "src/repro_torch/kernels/csrc/"
     trav = "src/repro/kernels/traversal.py:234"
@@ -4840,6 +5262,12 @@ def main(argv=None) -> int:
             launches += ssm["launches"][name]
             if name in ssm["err"]:
                 err = max(err or 0.0, ssm["err"][name])
+        if trained:   # the timed train steps' forward and recompute
+            launches += trained["launches"][
+                ("flash_attention", "flash_attention_fma", "topk",
+                 "topk_stream").index(name)]
+            if name in trained["fwd_err"]:   # (a)'s forward checks
+                err = max(err or 0.0, trained["fwd_err"][name])
         row = kernel_row(name, csrc + source, replaces, launches, err, t,
                          t["bound_by"] if t else bound_by)
         if dense and name.startswith("flash"):

@@ -1,5 +1,7 @@
 from repro_torch.checkpoint.store import (
-    latest_step, list_steps, save_checkpoint, step_dir,
+    AsyncCheckpointer, latest_step, list_steps, restore_checkpoint,
+    save_checkpoint, step_dir,
 )
 
-__all__ = ["save_checkpoint", "latest_step", "step_dir", "list_steps"]
+__all__ = ["AsyncCheckpointer", "latest_step", "list_steps",
+           "restore_checkpoint", "save_checkpoint", "step_dir"]

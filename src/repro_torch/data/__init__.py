@@ -1,5 +1,7 @@
 from repro_torch.data.pipeline import (
-    VectorDataset, clustered_vectors, sift_like_vectors,
+    Prefetcher, TokenDataset, VectorDataset, batch_to_device,
+    clustered_vectors, make_batch, sift_like_vectors,
 )
 
-__all__ = ["VectorDataset", "clustered_vectors", "sift_like_vectors"]
+__all__ = ["Prefetcher", "TokenDataset", "VectorDataset", "batch_to_device",
+           "clustered_vectors", "make_batch", "sift_like_vectors"]

@@ -41,6 +41,20 @@ block of 256 keys over [BKV, G * T] query rows; TF32 off).
 This is a choice by shape, not a fallback: a failed build or launch of
 either raises. `ops.flash_attention` picks the plain version or
 `flash_attention_cuda` by the tensors' device.
+
+`flash_attention_vjp` is the backward of `flash_attention` for training
+(`ops.flash_attention_differentiable`, a `torch.autograd.Function` whose
+forward is `ops.flash_attention`). It is plain PyTorch by design: the
+TPU kernel has no backward (the reference differentiates its plain-jnp
+`blockwise_attn` under `jax.checkpoint`, a query block at a time), and
+a CUDA backward kernel is queued in ROADMAP.md. It recomputes one block
+of `block_q` query rows at a time through `flash_attention_ref` in
+float32, with the block's own `q_offset` so that its mask is the whole
+sequence's, and takes `torch.autograd.grad` of that block: memory stays
+O(block_q x S), as the reference's per-block rematerialization keeps it.
+dk and dv are float32 sums over the blocks in block order; under grouped
+KV heads each sums over its G query heads by the plain version's
+[BKV, G * T] grouping, with nothing repeated in memory.
 """
 
 from __future__ import annotations
@@ -56,7 +70,7 @@ from repro_torch.kernels.l2dist import as_f32, raise_on
 __all__ = ["FMA_LAUNCHES", "MAX_HEAD_DIM", "NEG_INF", "TC_LAUNCHES",
            "flash_attention_ref", "flash_attention_cuda",
            "flash_attention_fma_cuda", "flash_attention_tc_cuda",
-           "live_keys", "takes_tensor_cores"]
+           "flash_attention_vjp", "live_keys", "takes_tensor_cores"]
 
 # launches of each CUDA kernel since import (or since a caller reset them)
 TC_LAUNCHES = 0                   # csrc/flash_attention_tc.cu
@@ -125,6 +139,38 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         m = m_new
     out = torch.where(m == NEG_INF, 0.0, acc / l.clamp_min(1e-20))
     return out.reshape(bh, t, -1).to(q.dtype)
+
+
+def flash_attention_vjp(q, k, v, dout, *, causal: bool = True,
+                        window: int = 0, prefix_len=None, q_offset: int = 0,
+                        block_q: int = 512):
+    """(dq, dk, dv) of `flash_attention(q, k, v, ...)` against the
+    cotangent dout [BH, T, hd_v], each in its input's dtype: the
+    recompute the module's docstring describes, `block_q` query rows at
+    a time."""
+    t = q.shape[1]
+    q_offset = int(q_offset)
+    with torch.enable_grad():
+        kf = k.detach().float().requires_grad_()
+        vf = v.detach().float().requires_grad_()
+        dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros_like(kf)
+        dv = torch.zeros_like(vf)
+        for t0 in range(0, t, block_q):
+            qb = q[:, t0:t0 + block_q].detach().float().requires_grad_()
+            out = flash_attention_ref(qb, kf, vf, causal=causal,
+                                      window=window, prefix_len=prefix_len,
+                                      q_offset=q_offset + t0)
+            if not out.requires_grad:         # no row of the block sees a key
+                dq[:, t0:t0 + block_q] = 0.0
+                continue
+            gq, gk, gv = torch.autograd.grad(
+                out, (qb, kf, vf), dout[:, t0:t0 + block_q].float(),
+                allow_unused=True, materialize_grads=True)
+            dq[:, t0:t0 + block_q] = gq
+            dk += gk
+            dv += gv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -7,9 +7,12 @@ from one to the other.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels.attention import (
     flash_attention_cuda,
     flash_attention_ref,
+    flash_attention_vjp,
 )
 from repro_torch.kernels.l2dist import l2dist_cuda, l2dist_ref
 from repro_torch.kernels.l2topk import l2topk_cuda, l2topk_ref
@@ -29,7 +32,8 @@ from repro_torch.kernels.traversal import (
     fused_traversal_ref,
 )
 
-__all__ = ["flash_attention", "fused_layer0", "l2dist", "l2dist_q", "l2topk",
+__all__ = ["flash_attention", "flash_attention_differentiable",
+           "fused_layer0", "l2dist", "l2dist_q", "l2topk",
            "l2topk_q", "pq_adc", "pq_topk", "topk"]
 
 
@@ -123,3 +127,39 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                "flash_attention")
     return fn(q, k, v, causal=causal, window=window, prefix_len=prefix_len,
               q_offset=q_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """`flash_attention` with a backward: the forward is `flash_attention`
+    (looked up when called, so a caller that swaps it swaps this forward
+    too), the backward `attention.flash_attention_vjp`'s plain recompute
+    a query block at a time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, prefix_len, q_offset, block_q):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = {"causal": causal, "window": window,
+                    "prefix_len": prefix_len, "q_offset": q_offset,
+                    "block_q": block_q}
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               prefix_len=prefix_len, q_offset=q_offset)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function("attn.backward"):
+            dq, dk, dv = flash_attention_vjp(q, k, v, dout, **ctx.mask)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_differentiable(q, k, v, *, causal: bool = True,
+                                   window: int = 0, prefix_len=None,
+                                   q_offset: int = 0, block_q: int = 512):
+    """`flash_attention` that autograd can differentiate: the same forward
+    (the kernel on CUDA tensors, the plain version on CPU tensors); the
+    backward recomputes `block_q` query rows at a time through the plain
+    version (`attention.flash_attention_vjp`)."""
+    return _FlashAttention.apply(q, k, v, causal, int(window or 0),
+                                 None if prefix_len is None
+                                 else int(prefix_len), int(q_offset),
+                                 int(block_q))

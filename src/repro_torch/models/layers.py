@@ -7,11 +7,12 @@ dtype and drawn from an explicit `torch.Generator` at the reference's
 scales. The apply functions are plain functions of (module, tensors).
 
 Attention comes in three execution paths, as in the reference:
-  * blockwise (flash-style) attention for prefill through
+  * blockwise (flash-style) attention for prefill and training through
     `kernels.ops.flash_attention`, with the reference's whole mask
     (causal, sliding window, bidirectional prefix, query offset) and
     grouped KV heads: the hand-written kernel on a CUDA tensor, its plain
-    version on a CPU tensor;
+    version on a CPU tensor (in training, with a plain recompute as its
+    backward);
   * single-token decode against a KV cache (`_decode_attn`): a full
     cache, a ring buffer for a sliding window, or an int8 cache
     (`quant_kv`) without one; plain torch, as the reference's is plain
@@ -51,7 +52,8 @@ class Params(nn.Module):
     """A module whose parameters and children carry the reference's dict
     keys: `p["wq"]` reads one, `"ffn" in p` tests one. Parameters are
     built uninitialised (`torch.empty`) and frozen (serving needs no
-    gradients); `draw_` fills them from a generator."""
+    gradients; `models.model.make_train_state` turns requires_grad on);
+    `draw_` fills them from a generator."""
 
     def __init__(self):
         super().__init__()
@@ -97,12 +99,37 @@ class Children(Params):
             self.add_module(str(i), m)
 
 
+class _RMSNorm(torch.autograd.Function):
+    """rms_norm with the reference's hand-written backward
+    (`_rms_bwd`): rms recomputed rather than saved, dx = r (g - x^
+    mean(x^ g)) with g = dy * scale in float32, dscale summed in
+    float32."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        xf = x.float()
+        xh = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        return (xh * scale.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        xf = x.float()
+        r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + ctx.eps)
+        xh = xf * r
+        g = dy.float() * scale.float()
+        proj = (xh * g).mean(-1, keepdim=True)
+        dx = (r * (g - xh * proj)).to(x.dtype)
+        dscale = (dy.float() * xh).sum(dim=tuple(range(dy.dim() - 1)))
+        return dx, dscale.to(scale.dtype), None
+
+
 def rms_norm(x, scale, eps: float = 1e-5):
     """x * rsqrt(mean(x^2) + eps) * scale in float32, cast back to x's
-    dtype."""
-    xf = x.float()
-    xh = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-    return (xh * scale.float()).to(x.dtype)
+    dtype; differentiable through the reference's own backward."""
+    return _RMSNorm.apply(x, scale, eps)
 
 
 def _rope_angles(positions, dim: int, theta: float):
@@ -131,7 +158,7 @@ def apply_rope(x, positions, theta: float = 1e4):
 
 
 def blockwise_attn(q, k, v, *, causal: bool = True, window: int = 0,
-                   prefix_len=None, q_offset=0):
+                   prefix_len=None, q_offset=0, block_q: int = 512):
     """Softmax attention of q [B, T, H, hd] over k, v [B, S, KV, hd] ->
     [B, T, H, hd] in q's dtype, through `ops.flash_attention` over
     [B * H, T, hd] queries and [B * KV, S, hd] keys and values (query
@@ -141,18 +168,28 @@ def blockwise_attn(q, k, v, *, causal: bool = True, window: int = 0,
     `_mask_block`: queries at positions q_offset.., keys at 0..S-1,
     causal with an optional bidirectional prefix (`prefix_len`, an int or
     a 0-d tensor, read once), an optional sliding window; a query with no
-    live key gives 0. The reference's `block_q`, `block_k` and
-    `skip_masked_blocks` change no result and are not taken: the kernel
-    fixes its own blocks and skips the dead ones."""
+    live key gives 0. The reference's `block_k` and `skip_masked_blocks`
+    change no result and are not taken: the kernel fixes its own blocks
+    and skips the dead ones.
+
+    Where autograd records (grad enabled and an input requiring grad,
+    training) the call goes through `ops.flash_attention_differentiable`,
+    the same forward with a backward that recomputes `block_q` query rows
+    at a time, the reference's per-block rematerialization; everywhere
+    else (serving) straight to `ops.flash_attention`."""
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     qh = q.transpose(1, 2).reshape(B * H, T, hd).contiguous()
     kh, vh = (t.transpose(1, 2).reshape(B * KV, S, hd).contiguous()
               for t in (k, v))
-    out = ops.flash_attention(
-        qh, kh, vh, causal=causal, window=int(window or 0),
-        prefix_len=None if prefix_len is None else int(prefix_len),
-        q_offset=int(q_offset))
+    mask = {"causal": causal, "window": int(window or 0),
+            "prefix_len": None if prefix_len is None else int(prefix_len),
+            "q_offset": int(q_offset)}
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = ops.flash_attention_differentiable(qh, kh, vh, **mask,
+                                                 block_q=block_q)
+    else:
+        out = ops.flash_attention(qh, kh, vh, **mask)
     return out.reshape(B, H, T, hd).transpose(1, 2)
 
 
@@ -211,13 +248,15 @@ def attn_init(d_model: int, n_heads: int, n_kv: int, head_dim: int,
 
 
 def attn_apply(p, x, *, mode: str, cache=None, pos=0, window: int = 0,
-               prefix_len=None, rope_theta: float = 1e4):
+               prefix_len=None, rope_theta: float = 1e4,
+               block_q: int = 512):
     """GQA attention of x [B, T, d] -> (y [B, T, d], cache). The cache is
     {"k", "v": [B, S, KV, hd]}: every position (S = s_max), a ring buffer
     of the last S = min(window, s_max) positions at slot position % S, or
     int8 values with {"ks", "vs": bf16 [B, S, KV, 1]} scales (no window);
     it is written in place (prefill with a cache, and decode) and
-    returned."""
+    returned. mode "train" runs as prefill with no cache; `block_q` is
+    the query block of attention's backward."""
     B, T, _ = x.shape
     pos = int(pos)
     window = int(window or 0)
@@ -248,7 +287,8 @@ def attn_apply(p, x, *, mode: str, cache=None, pos=0, window: int = 0,
             out = _decode_attn(q, k_all, v_all, s_valid=s_valid)
     else:
         out = blockwise_attn(q, k, v, causal=True, window=window,
-                             prefix_len=prefix_len, q_offset=pos)
+                             prefix_len=prefix_len, q_offset=pos,
+                             block_q=block_q)
         if mode == "prefill" and cache is not None:
             S = cache["k"].shape[1]
             if window > 0:
@@ -336,11 +376,13 @@ def _write_cache(buf, new, pos: int):
 
 
 def mla_apply(p, x, *, mode: str, cache=None, pos=0, mla: MLAConfig,
-              rope_theta: float = 1e4):
+              rope_theta: float = 1e4, block_q: int = 512):
     """MLA attention of x [B, T, d] -> (y [B, T, d], cache). The cache
     {"c": [B, S, kv_lora], "kr": [B, S, qk_rope]} stores only the
     compressed latent and the shared rope key; it is written in place at
-    `pos` and returned (prefill with a cache, and decode)."""
+    `pos` and returned (prefill with a cache, and decode). mode "train"
+    runs as prefill with no cache; `block_q` is the query block of
+    attention's backward."""
     B, T, _ = x.shape
     H = p["wq"].shape[1]
     nope, rope_d, lora = mla.qk_nope, mla.qk_rope, mla.kv_lora
@@ -375,8 +417,8 @@ def mla_apply(p, x, *, mode: str, cache=None, pos=0, mla: MLAConfig,
         y = torch.einsum("bthv,hvd->btd", out.to(x.dtype), p["wo"])
         return y, cache
 
-    # prefill: materialise per-head k, v; v padded to the qk width so the
-    # flash kernel applies, then sliced
+    # train / prefill: materialise per-head k, v; v padded to the qk width
+    # so the flash kernel applies, then sliced
     k_nope = torch.einsum("btl,lhn->bthn", c_kv, p["w_uk"])
     v = torch.einsum("btl,lhv->bthv", c_kv, p["w_uv"])
     k_full = torch.cat([k_nope, k_rope.expand(B, T, H, rope_d)], dim=-1)
@@ -384,7 +426,7 @@ def mla_apply(p, x, *, mode: str, cache=None, pos=0, mla: MLAConfig,
     vd = mla.v_dim
     v_pad = F.pad(v, (0, scale_dim - vd))
     out = blockwise_attn(q_full, k_full, v_pad, causal=True,
-                         q_offset=pos)[..., :vd]
+                         q_offset=pos, block_q=block_q)[..., :vd]
     y = torch.einsum("bthv,hvd->btd", out, p["wo"])
     if mode == "prefill" and cache is not None:
         _write_cache(cache["c"], c_kv, pos)

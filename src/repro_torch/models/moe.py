@@ -18,7 +18,10 @@ in scatter order (`.at[t].add`, by expert id). Here each token's k
 contributions are put back in (token, slot) order and summed in
 increasing expert id, in the activations' dtype, one rounding an add:
 the same order, and deterministic on the card, where a scatter-add of
-atomics would not be.
+atomics would not be. Training keeps that: the gates are the selected
+probabilities (so the router gets gradients, also when the topk kernel
+selects), and the dispatch's backward sums a token's k slots in a fixed
+order. The Switch load-balancing aux loss is the reference's.
 """
 
 from __future__ import annotations
@@ -77,8 +80,11 @@ def _route(logits, k: int, use_kernel: bool):
     [S, k] float32, idx [S, k] int64, probs [S, E] float32)."""
     probs = torch.softmax(logits.float(), dim=-1)
     if use_kernel:
-        neg, idx = ops.topk(-probs, k)
-        gate = -neg
+        neg, idx = ops.topk(-probs.detach(), k)
+        # in training the gates must carry gradients to the router: the
+        # selected probabilities, bitwise the kernel's values
+        gate = (probs.gather(-1, idx.long()) if probs.requires_grad
+                else -neg)
     else:
         gate, idx = _top_k(probs, k)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -132,7 +138,15 @@ def moe_apply(p, x, mc: MoEConfig, *, act=F.silu, train: bool = False):
     dest, st, sg, keep, order = _dispatch_plan(idx, gate, E, C)
     # ---- dispatch: one gather, one scatter (spill-row writes collide and
     # are discarded) ------------------------------------------------------
-    gathered = xf.gather(1, st[..., None].expand(-1, -1, d))   # [G, SgK, d]
+    if xf.requires_grad and torch.is_grad_enabled():
+        # each token repeated k times in (token, slot) order, then put in
+        # expert order by a permutation: backward sums a token's k slots
+        # in a fixed order, where a gather's backward (a scatter-add of
+        # atomics on the card) would not
+        rep = xf[:, :, None].expand(G, Sg, K, d).reshape(G, Sg * K, d)
+        gathered = rep.gather(1, order[..., None].expand(-1, -1, d))
+    else:
+        gathered = xf.gather(1, st[..., None].expand(-1, -1, d))  # [G, SgK, d]
     buf = xf.new_zeros((G, E * C + 1, d)).scatter_(
         1, dest[..., None].expand(-1, -1, d), gathered)
     h = buf[:, :E * C].reshape(G, E, C, d)

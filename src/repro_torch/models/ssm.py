@@ -11,7 +11,14 @@ float32 state.
 The reference scans time with `lax.scan` under `chunked_scan`, whose
 chunks matter only for train-time rematerialization. Here the scan is a
 Python loop over time of torch ops on the tensors' device, with the
-reference's arithmetic step for step. The terms of a step that do not
+reference's arithmetic step for step. In mode "train" every layer scans
+with the reference's own step function (out of place, so autograd can
+differentiate it) under `chunked_scan(..., chunk)`, which runs each
+chunk of `chunk` steps under one `torch.utils.checkpoint`: backward keeps
+the state at the chunks' boundaries and recomputes the rest, so memory
+grows as T / chunk states, not T, and the gradients are bitwise those of
+the scan without chunks. Prefill and decode keep the blocked in-place
+form below. The terms of a step that do not
 read the state (Mamba's exp(dt A) and dt B x and its read-out h C;
 mLSTM's stabilizer m, its gates i_p, f_p, i_p v k^T and i_p k, and its
 read-out C q / denom) are computed for a block of SCAN_BLOCK steps in one
@@ -39,6 +46,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import Params, rms_norm
 
@@ -53,22 +61,43 @@ __all__ = [
 SCAN_BLOCK = 16
 
 
-def chunked_scan(step, init, xs):
-    """The reference's scan over time: carry, y_t = step(carry, x_t) for
-    each t of the leading axis of `xs` (a tensor, or a tuple of tensors
-    passed to step as a tuple), a Python loop. Returns (carry, ys) with
-    the y_t stacked on axis 0 (a tuple of stacks where step returns a
-    tuple). The reference's chunk and train-time rematerialization are
-    left out: serving needs neither."""
-    seq = xs if isinstance(xs, tuple) else (xs,)
-    carry, ys = init, []
-    for t in range(seq[0].shape[0]):
-        carry, y = step(carry, tuple(a[t] for a in seq)
-                        if isinstance(xs, tuple) else xs[t])
+def _scan(step, carry, is_tuple: bool, *seq):
+    """carry, y_t = step(carry, x_t) over the leading axis of seq; (carry,
+    the y_t stacked on axis 0, a tuple of stacks where step returns a
+    tuple)."""
+    ys = []
+    for x_t in zip(*(a.unbind(0) for a in seq)):
+        carry, y = step(carry, x_t if is_tuple else x_t[0])
         ys.append(y)
     if isinstance(ys[0], tuple):
         return carry, tuple(torch.stack(c) for c in zip(*ys))
     return carry, torch.stack(ys)
+
+
+def chunked_scan(step, init, xs, chunk: int | None = None):
+    """The reference's scan over time: carry, y_t = step(carry, x_t) for
+    each t of the leading axis of `xs` (a tensor, or a tuple of tensors
+    passed to step as a tuple), a Python loop. Returns (carry, ys) with
+    the y_t stacked on axis 0 (a tuple of stacks where step returns a
+    tuple). With `chunk` (gcd(T, chunk) where it does not divide T, as
+    the reference's) and autograd recording, each chunk runs under one
+    `torch.utils.checkpoint`: the reference's per-chunk remat."""
+    is_tuple = isinstance(xs, tuple)
+    seq = xs if is_tuple else (xs,)
+    T = seq[0].shape[0]
+    if chunk is None or not torch.is_grad_enabled():
+        return _scan(step, init, is_tuple, *seq)
+    if T % chunk:
+        chunk = math.gcd(T, chunk) or T
+    carry, parts = init, []
+    for t0 in range(0, T, chunk):
+        carry, ys = checkpoint(_scan, step, carry, is_tuple,
+                               *(a[t0:t0 + chunk] for a in seq),
+                               use_reentrant=False)
+        parts.append(ys)
+    if isinstance(parts[0], tuple):
+        return carry, tuple(torch.cat(c) for c in zip(*parts))
+    return carry, torch.cat(parts)
 
 
 def _einsum(eq: str, a, b):
@@ -168,23 +197,37 @@ def mamba_apply(p, x, *, mode: str, cache=None, pos=0, mc: MambaConfig):
     A = -torch.exp(p["A_log"].float())                    # [di, S]
     h = (cache["ssm"] if decode
          else torch.zeros((B, di, S), dtype=torch.float32, device=x.device))
-    ys = []
+    xs = tuple(a.transpose(0, 1) for a in (dt, Bm, Cm, xc))  # [T, B, ..]
     with torch.profiler.record_function("ssm.scan"):
-        for blk in _blocks(T):
-            dt_b, B_b, C_b, x_b = (a[:, blk].transpose(0, 1)
-                                   for a in (dt, Bm, Cm, xc))  # [c, B, ..]
-            # dA becomes the block's states: h_t = dA_t h_{t-1} + dBx_t
-            hs = torch.exp(dt_b[..., None] * A)           # float32
-            dBx = dt_b[..., None] * B_b[:, :, None, :] * x_b[..., None]
-            for t in range(hs.shape[0]):
-                h = hs[t].mul_(h).add_(dBx[t])
-            ys.append(_einsum("cbis,cbs->cbi", hs, C_b))
-    y = torch.cat(ys).transpose(0, 1) + xc * p["D"]       # float32
+        if mode == "train":
+            h, y = chunked_scan(lambda h, x_t: _mamba_step(A, h, x_t), h, xs,
+                                mc.chunk)
+        else:
+            ys = []
+            for blk in _blocks(T):
+                dt_b, B_b, C_b, x_b = (a[blk] for a in xs)   # [c, B, ..]
+                # dA becomes the block's states: h_t = dA_t h_{t-1} + dBx_t
+                hs = torch.exp(dt_b[..., None] * A)       # float32
+                dBx = dt_b[..., None] * B_b[:, :, None, :] * x_b[..., None]
+                for t in range(hs.shape[0]):
+                    h = hs[t].mul_(h).add_(dBx[t])
+                ys.append(_einsum("cbis,cbs->cbi", hs, C_b))
+            y = torch.cat(ys)
+    y = y.transpose(0, 1) + xc * p["D"]                   # float32
     y = y * F.silu(z)
     out = _einsum("bti,id->btd", y.to(x.dtype), p["out_proj"])
     if cache is None:
         return out, None
     return out, _write(cache, conv=new_conv, ssm=h)
+
+
+def _mamba_step(A, h, xs):
+    """One Mamba step (the reference's `step`): h = exp(dt A) h + dt B x,
+    y = h C."""
+    dt_t, B_t, C_t, x_t = xs
+    h = torch.exp(dt_t[..., None] * A) * h + \
+        dt_t[..., None] * B_t[:, None, :] * x_t[..., None]
+    return h, _einsum("bis,bs->bi", h, C_t)
 
 
 def mamba_cache_init(batch: int, d_model: int, mc: MambaConfig, *,
@@ -240,6 +283,22 @@ def _mlstm_stabilizer(m, xs):
     return m, (lfm, m)
 
 
+def _mlstm_cell(state, xs):
+    """One stabilized mLSTM step (the reference's `_mlstm_cell`): q, k, v
+    [B, H, dh], log_i, log_f [B, H]; state (C, n, m)."""
+    q, k, v, log_i, log_f = xs
+    C, n, m = state
+    m_new = torch.maximum(log_f + m, log_i)
+    i_p = torch.exp(log_i - m_new)[..., None]
+    f_p = torch.exp(log_f + m - m_new)[..., None]
+    C = f_p[..., None] * C + i_p[..., None] * (v[..., :, None]
+                                               * k[..., None, :])
+    n = f_p * n + i_p * k
+    denom = torch.maximum(torch.einsum("bhd,bhd->bh", n, q).abs(),
+                          torch.exp(-m_new))[..., None]
+    return (C, n, m_new), torch.einsum("bhvd,bhd->bhv", C, q) / denom
+
+
 def mlstm_apply(p, x, *, mode: str, cache=None, pos=0, xc: XLSTMConfig):
     """mLSTM of x [B, T, d] -> (y [B, T, d], cache): {"conv": [B, K-1,
     di], "C": [B, H, dh, dh], "n": [B, H, dh], "m": [B, H]} (the state
@@ -267,26 +326,31 @@ def mlstm_apply(p, x, *, mode: str, cache=None, pos=0, xc: XLSTMConfig):
         C = torch.zeros((B, H, dh, dh), **f32)
         n = torch.zeros((B, H, dh), **f32)
         m = torch.full((B, H), -math.inf, **f32)
-    hs = []
+    xs = tuple(a.transpose(0, 1).float() for a in (q, k, v, log_i, log_f))
     with torch.profiler.record_function("ssm.scan"):
-        for blk in _blocks(T):
-            q_b, k_b, v_b, li, lf = (a[:, blk].transpose(0, 1).float()
-                                     for a in (q, k, v, log_i, log_f))
-            m, (lfm, m_b) = chunked_scan(_mlstm_stabilizer, m, (lf, li))
-            i_p = torch.exp(li - m_b)[..., None]          # [c, B, H, 1]
-            f_p = torch.exp(lfm - m_b)[..., None]
-            # i_p v k^T and i_p k become the block's states:
-            # C_t = f_p C_{t-1} + i_p v k^T, n_t = f_p n_{t-1} + i_p k
-            Cs = (v_b[..., :, None] * k_b[..., None, :]).mul_(i_p[..., None])
-            ns = i_p * k_b
-            for t in range(Cs.shape[0]):
-                C = Cs[t].add_(f_p[t][..., None] * C)
-                n = ns[t].add_(f_p[t] * n)
-            denom = torch.maximum(
-                torch.einsum("cbhd,cbhd->cbh", ns, q_b).abs(),
-                torch.exp(-m_b))[..., None]
-            hs.append(torch.einsum("cbhvd,cbhd->cbhv", Cs, q_b) / denom)
-    h = torch.cat(hs).transpose(0, 1).reshape(B, T, di)
+        if mode == "train":
+            (C, n, m), h = chunked_scan(_mlstm_cell, (C, n, m), xs, xc.chunk)
+        else:
+            hs = []
+            for blk in _blocks(T):
+                q_b, k_b, v_b, li, lf = (a[blk] for a in xs)
+                m, (lfm, m_b) = chunked_scan(_mlstm_stabilizer, m, (lf, li))
+                i_p = torch.exp(li - m_b)[..., None]      # [c, B, H, 1]
+                f_p = torch.exp(lfm - m_b)[..., None]
+                # i_p v k^T and i_p k become the block's states:
+                # C_t = f_p C_{t-1} + i_p v k^T, n_t = f_p n_{t-1} + i_p k
+                Cs = (v_b[..., :, None] * k_b[..., None, :]).mul_(
+                    i_p[..., None])
+                ns = i_p * k_b
+                for t in range(Cs.shape[0]):
+                    C = Cs[t].add_(f_p[t][..., None] * C)
+                    n = ns[t].add_(f_p[t] * n)
+                denom = torch.maximum(
+                    torch.einsum("cbhd,cbhd->cbh", ns, q_b).abs(),
+                    torch.exp(-m_b))[..., None]
+                hs.append(torch.einsum("cbhvd,cbhd->cbhv", Cs, q_b) / denom)
+            h = torch.cat(hs)
+    h = h.transpose(0, 1).reshape(B, T, di)
     h = rms_norm(h.to(x.dtype), p["gn_scale"])            # per-channel norm
     h = h + p["skip"] * xcv
     h = h * F.silu(z)
@@ -364,7 +428,8 @@ def slstm_apply(p, x, *, mode: str, cache=None, pos=0, xc: XLSTMConfig):
             torch.full((B, H, dh), -math.inf, device=x.device),)
     with torch.profiler.record_function("ssm.scan"):
         state, hs = chunked_scan(lambda s, g: _slstm_cell(g, r, s), state,
-                                 gx.transpose(0, 1))
+                                 gx.transpose(0, 1),
+                                 xc.chunk if mode == "train" else None)
     h = hs.transpose(0, 1).reshape(B, T, d_model).to(x.dtype)
     h = rms_norm(h, p["gn_scale"])
     ff = _einsum("btd,dgf->btgf", h, p["ffn_in"])

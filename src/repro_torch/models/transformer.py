@@ -19,10 +19,12 @@ their conv and scan state too.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -30,8 +32,9 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import Children, Params
 
-__all__ = ["LayerSpec", "ModelConfig", "compute_logits", "embed_lookup",
-           "forward", "init_cache", "init_params", "model_skeleton"]
+__all__ = ["LayerSpec", "ModelConfig", "chunked_xent", "compute_logits",
+           "embed_lookup", "forward", "init_cache", "init_params",
+           "model_skeleton"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,11 +159,11 @@ def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, *, mode, cache,
         h, new_cache = L.attn_apply(
             p["attn"], h, mode=mode, cache=cache, pos=pos, window=spec.window,
             prefix_len=prefix_len if cfg.prefix_lm else None,
-            rope_theta=cfg.rope_theta)
+            rope_theta=cfg.rope_theta, block_q=cfg.block_q)
     elif spec.kind == "mla":
         h, new_cache = L.mla_apply(
             p["attn"], h, mode=mode, cache=cache, pos=pos, mla=cfg.mla,
-            rope_theta=cfg.rope_theta)
+            rope_theta=cfg.rope_theta, block_q=cfg.block_q)
     elif spec.kind == "mamba":
         h, new_cache = S.mamba_apply(p["mixer"], h, mode=mode, cache=cache,
                                      pos=pos, mc=cfg.mamba)
@@ -186,9 +189,41 @@ def _layer_apply(p, spec: LayerSpec, cfg: ModelConfig, x, *, mode, cache,
 # ---------------------------------------------------------------------------
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """A gather forward; the reference's backward (`_embed_bwd`): in place
+    of a scatter-add, a one-hot [B, chunk, V] product per chunk of at most
+    512 positions (the largest divisor of T not above 512), accumulated
+    in chunk order in the gradient's dtype. On the card it is a plain
+    matmul, deterministic where an atomic scatter-add is not."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.vocab = table.shape[0]
+        ctx.table_dtype = table.dtype
+        return F.embedding(tokens, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        V = ctx.vocab
+        T = g.shape[1]
+        chunk = min(T, 512)
+        while T % chunk:
+            chunk -= 1
+        cols = torch.arange(V, device=g.device)
+        acc = torch.zeros((V, g.shape[2]), dtype=g.dtype, device=g.device)
+        for c0 in range(0, T, chunk):
+            oh = (tokens[:, c0:c0 + chunk, None] == cols).to(g.dtype)
+            acc = acc + torch.einsum("bcv,bcd->vd", oh,
+                                     g[:, c0:c0 + chunk])
+        return acc.to(ctx.table_dtype), None
+
+
 def embed_lookup(table, tokens):
-    """table [V, d], tokens [B, T] -> [B, T, d] (a gather)."""
-    return F.embedding(tokens, table)
+    """table [V, d], tokens [B, T] -> [B, T, d]: a gather, differentiable
+    through the reference's chunked one-hot backward."""
+    return _EmbedLookup.apply(table, tokens)
 
 
 def model_skeleton(cfg: ModelConfig, device) -> Params:
@@ -245,13 +280,28 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     return cache
 
 
+def _period(pparams, cfg: ModelConfig, x, *, mode, pcache, pos,
+            prefix_len):
+    aux_p = 0.0
+    for i, spec in enumerate(cfg.pattern):
+        x, _, aux = _layer_apply(pparams[str(i)], spec, cfg, x, mode=mode,
+                                 cache=None if pcache is None
+                                 else pcache[str(i)], pos=pos,
+                                 prefix_len=prefix_len)
+        aux_p = aux_p + aux
+    return x, aux_p
+
+
 def forward(model, cfg: ModelConfig, inputs, *, mode: str, cache=None,
             pos=0, prefix_len=None):
     """inputs: tokens [B, T] (embed_inputs) or embeddings [B, T, d] ->
     (hidden [B, T, d], cache, aux loss sum). With a cache, each layer
     writes its positions pos.. in place. `prefix_len` (an int or a 0-d
     tensor, read once here) is the bidirectional prefix of a prefix-LM
-    config; other configs ignore it, as the reference's do."""
+    config; other configs ignore it, as the reference's do. mode "train"
+    (no cache) with `cfg.remat` runs each period under one
+    `torch.utils.checkpoint`, the reference's `jax.checkpoint` of a
+    period: backward keeps the periods' inputs and recomputes the rest."""
     x = embed_lookup(model["embed"], inputs) if cfg.embed_inputs else inputs
     if prefix_len is not None:
         prefix_len = int(prefix_len)
@@ -262,16 +312,19 @@ def forward(model, cfg: ModelConfig, inputs, *, mode: str, cache=None,
                                  mode=mode, cache=c, pos=pos,
                                  prefix_len=prefix_len)
         aux_total = aux_total + aux
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+    aux_periods = 0.0
     for per in range(cfg.num_periods):
-        pparams = model["periods"][str(per)]
-        for i, spec in enumerate(cfg.pattern):
-            c = None
-            if cache is not None:
-                c = {k: v[per] for k, v in cache["periods"][str(i)].items()}
-            x, _, aux = _layer_apply(pparams[str(i)], spec, cfg, x,
-                                     mode=mode, cache=c, pos=pos,
-                                     prefix_len=prefix_len)
-            aux_total = aux_total + aux
+        pcache = None
+        if cache is not None:
+            pcache = {i: {k: v[per] for k, v in layer.items()}
+                      for i, layer in cache["periods"].items()}
+        run = functools.partial(_period, model["periods"][str(per)], cfg,
+                                mode=mode, pcache=pcache, pos=pos,
+                                prefix_len=prefix_len)
+        x, aux = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+        aux_periods = aux_periods + aux
+    aux_total = aux_total + aux_periods
     x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
     return x, cache, aux_total
 
@@ -291,3 +344,46 @@ def compute_logits(model, cfg: ModelConfig, hidden):
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = float("-inf")
     return logits[:, :, 0] if cfg.num_output_heads == 1 else logits
+
+
+def _xent_chunk(h_c, head, l_c, m_c, vocab_size: int):
+    """Masked cross-entropy sum of one chunk: h_c [B, c, d], head [d, nH,
+    V], labels l_c and mask m_c [B, c, nH]."""
+    logits = torch.einsum("bcd,dhv->bchv", h_c.float(), head.float())
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    logits = torch.where(cols < vocab_size, logits, float("-inf"))
+    logz = torch.logsumexp(logits, dim=-1)
+    # the label's logit by a masked sum, as the reference takes it
+    ll = torch.where(cols == l_c[..., None], logits, 0.0).sum(-1)
+    return ((logz - ll) * m_c).sum()
+
+
+def chunked_xent(model, cfg: ModelConfig, hidden, labels, mask=None):
+    """Mean cross-entropy over the `mask`ed positions (all by default)
+    without materialising [B, T, V] logits: chunks of cfg.loss_chunk
+    positions (the largest divisor of T not above it), each under one
+    `torch.utils.checkpoint` (the reference's `jax.checkpoint` of a scan
+    step), so backward recomputes a chunk's logits. Padded vocab columns
+    are -inf. labels [B, T] or [B, T, nH] (several output heads)."""
+    B, T, _ = hidden.shape
+    head = _head_matrix(model, cfg)
+    chunk = min(cfg.loss_chunk, T)
+    if T % chunk:
+        chunk = 1 if T < 2 else next(c for c in range(chunk, 0, -1)
+                                     if T % c == 0)
+    if labels.dim() == 2:
+        labels = labels[..., None]
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=hidden.device)
+    elif mask.dim() == 2:
+        mask = mask[..., None].float()
+    loss_sum, count = 0.0, 0.0
+    for c0 in range(0, T, chunk):
+        part = (hidden[:, c0:c0 + chunk], head, labels[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk], cfg.vocab_size)
+        loss = (checkpoint(_xent_chunk, *part, use_reentrant=False)
+                if torch.is_grad_enabled() else _xent_chunk(*part))
+        loss_sum = loss_sum + loss
+        count = count + part[3].sum()
+    return loss_sum / torch.clamp_min(torch.as_tensor(count), 1.0)

@@ -15,8 +15,10 @@ in its manifest (`IndexSpec.qscale`/`qzero`, `IndexSpec.pq_codebooks`).
   asymmetric (ADC): the query stays float32 and a per-query [m, 256]
   table (`build_pq_lut`) is gathered by the codes and summed.
 
-The reference's gradient compression belongs to the training substrate
-and is not part of this module.
+* `compress_grads` / `decompress_grads` — the training substrate's
+  int8 gradient compression: one float32 scale a leaf (max |g| / 127),
+  values rounded half to even, and error feedback (what rounding lost is
+  returned, to be added to the next step's gradient).
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import numpy as np
 import torch
 
 __all__ = ["VectorQuantizer", "PQQuantizer", "CODE_DTYPES", "code_dtype",
-           "PQ_K", "build_pq_lut"]
+           "PQ_K", "build_pq_lut", "CompressionConfig", "compress_grads",
+           "decompress_grads"]
 
 
 # ---------------------------------------------------------------------------
@@ -257,3 +260,44 @@ class PQQuantizer:
     def from_json(cls, d: dict) -> "PQQuantizer":
         cb = np.asarray(d["codebooks"], np.float32)
         return cls(m=int(d["m"]), dsub=int(d["dsub"]), codebooks=cb)
+
+
+# ---------------------------------------------------------------------------
+# Gradient compression (training substrate)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionConfig:
+    enabled: bool = False
+    bits: int = 8
+
+
+def _q(x, err):
+    x = x.float() + (err if err is not None else 0.0)
+    scale = torch.clamp_min(x.abs().max(), 1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale, x - q.float() * scale
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def compress_grads(grads, err_state=None):
+    """(int8 values, float32 scales, new error state), each a tree (nested
+    dicts) shaped as `grads`; `err_state` (the previous call's error
+    state, or None) is added to the gradients first."""
+    if err_state is None:
+        err_state = _tree_map(lambda g: None, grads)
+    triples = _tree_map(_q, grads, err_state)
+    pick = lambda i: _tree_map(lambda t: t[i], triples)  # noqa: E731
+    return pick(0), pick(1), pick(2)
+
+
+def decompress_grads(q_grads, scales, denom: float = 1.0):
+    """float32 gradients q * scale / denom."""
+    return _tree_map(lambda q, s: q.float() * s / denom, q_grads, scales)

@@ -18,7 +18,9 @@ Tolerances, all float32 unless stated:
   2e-3, the reference's own (tests/test_models.py), and the port's own
   prefill/decode consistency, as tests/test_models.py checks it;
 - a bf16 layer decoding from a float32 cache (the conv in the wider
-  dtype): within 2e-2 of the reference on the same dtypes.
+  dtype), fresh or after a prefill (where the reference's conv state
+  turns bf16 and the port's stays float32, by design): within 2e-2 of
+  the reference on the same dtypes.
 
 Tests marked `cuda` run only where there is a card, float32 on the card
 against the reference on the CPU: one jamba period at full layer widths
@@ -233,6 +235,40 @@ def test_bf16_layer_decodes_from_a_float32_cache(kind):
                           mode="decode", cache=p_c, pos=t, **{cname: pc})
         assert str(py.dtype).split(".")[-1] == jnp.dtype(ry.dtype).name
         _close(py, ry, 2e-2)
+    for name, leaf in p_c.items():
+        assert leaf.dtype == torch.float32, name
+
+
+@pytest.mark.parametrize("kind", ["mamba", "mlstm"])
+def test_bf16_layer_prefill_then_decode_over_a_float32_cache(kind):
+    """bf16 parameters, prefill of 3 positions then 3 decode steps over a
+    float32 cache: by design the two packages keep the conv state in
+    different dtypes. The reference's prefill returns its conv leaf in
+    the activations' dtype (bf16), so its decodes convolve in bf16; the
+    port writes the state into the float32 cache in place, so its
+    decodes convolve in float32 (`models/ssm.py`'s docstring). The leaf
+    dtypes are pinned, and the outputs stay within this file's 2e-2 of
+    the reference's."""
+    tree, module = _layer_pair(kind, dtype=torch.bfloat16, seed=4)
+    x = _np((2, 6, D_MODEL), seed=6)
+    _, _, r_cache, rc, _, p_apply, p_cache, pc, cname = KINDS[kind]
+    rtree = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), tree)
+    r_c = r_cache(2, D_MODEL, rc, dtype=jnp.float32)
+    p_c = p_cache(2, D_MODEL, pc, dtype=torch.float32, device="cpu")
+    ry, r_c = _ref_apply(kind, "prefill")(
+        rtree, jnp.asarray(x[:, :3], jnp.bfloat16), cache=r_c)
+    py, p_c = p_apply(module, _t(x[:, :3], torch.bfloat16), mode="prefill",
+                      cache=p_c, pos=0, **{cname: pc})
+    _close(py, ry, 2e-2)
+    assert r_c["conv"].dtype == jnp.bfloat16
+    assert p_c["conv"].dtype == torch.float32
+    for t in range(3, 6):
+        ry, r_c = _ref_apply(kind, "decode")(
+            rtree, jnp.asarray(x[:, t:t + 1], jnp.bfloat16), cache=r_c)
+        py, p_c = p_apply(module, _t(x[:, t:t + 1], torch.bfloat16),
+                          mode="decode", cache=p_c, pos=t, **{cname: pc})
+        _close(py, ry, 2e-2)
+    assert r_c["conv"].dtype == jnp.bfloat16
     for name, leaf in p_c.items():
         assert leaf.dtype == torch.float32, name
 
