@@ -404,6 +404,42 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                bf16 runs 8 steps and dies at step 5; resumed, its
                parameters equal an uninterrupted run's bitwise, and the
                GC keeps `keep` steps.
+  12. tools  — the LM dry run and sharding tools and the last two
+               examples, last, after the train phase's model is freed.
+               What needs no card of its own starts after phase 3,
+               beside phase 4's index build, and is done before phase 4
+               serves: (a)'s sweep and the quickstart as subprocesses,
+               (c)'s CPU run in a worker of the build pool.
+               (a) `python -m repro_torch.launch.dryrun --arch all --shape
+               all --mesh both` as a subprocess: 80 records (10
+               architectures x 4 shapes x the (16, 16) and (2, 16, 16)
+               production meshes), none in error, the skipped cells
+               exactly those `shape_runnable` refuses; the largest
+               per-device argument bytes and every cell past 80 GB logged;
+               then `report` over the file into the log and `reterm` over
+               a copy, which must change no record's analytic fields.
+               (b) for deepseek-v2-lite-16b (MLA cache, MoE), qwen3-14b
+               (GQA k / v) and xlstm-350m (the mLSTM / sLSTM state):
+               `lower_cell` on a one-slot mesh of this card at phase 8's
+               decode cell (B=8, a 2,080-position cache, full width and
+               depth), then the same parameters, cache, tokens and pos
+               allocated on the card uninitialised (torch.empty): its
+               argument_bytes must equal the tensors' nbytes, and the rise
+               of memory_allocated must lie within the caching allocator's
+               rounding of them (alloc_bounds); each freed before the
+               next. (c) examples/torch_knn_lm_decode.py's `run` on the
+               card and on the CPU with the same weights (the REDUCED
+               granite-3-8b, float32, drawn on the CPU from the seed),
+               the traversal and flash launch counters set to 0 just
+               before the card's run and read just after
+               (traversal_async.cu and flash_attention.cu > 0,
+               traversal.cu and the tensor-core flash kernel 0): each
+               step's LM log-probabilities within 2e-3, retrieved ids
+               overlapping >= 0.9, decoded tokens equal wherever the
+               mixed distribution's top-2 margin exceeds 1e-3; and
+               `examples/torch_quickstart.py --n 2000 --dim 64
+               --partitions 2` on the card as a subprocess: exit 0, its
+               three recall lines and OK.
 
 Each serving path prints QPS and p50/p99 per 256-query batch. The line
 before the last is {"kernels": [...]} with each kernel's launches on its
@@ -579,6 +615,15 @@ TRAIN_F32_BT, TRAIN_DET_STEPS, TRAIN_LOOP = (1, 512), 3, (8, 5, 2)
 TRAIN_GRAD_TOL = {torch.float32: (1e-5, 1e-5),
                   torch.bfloat16: (2.0 ** -7, 2.0 ** -8)}
 # (a)'s cases: (name, (BH, BKV, T, hd, V's live columns), mask)
+# the tools phase: (b)'s architectures (an MLA cache with MoE, GQA k / v,
+# the recurrent mLSTM / sLSTM state) at phase 8's decode cell; the caching
+# allocator's block rounding and its most slack a large block (alloc_bounds);
+# (c)'s kNN-LM gates, card against CPU: the LM's float32 tolerance, the
+# least share of each step's retrieved ids in common, and the top-2 margin
+# of the mixed distribution above which the decoded token must be equal
+TOOLS_ARCHS = ("deepseek_v2_lite_16b", "qwen3_14b", "xlstm_350m")
+ALLOC_ROUND, ALLOC_SLACK = 512, 1 << 20
+KNN_LM_TOL, KNN_ID_OVERLAP, KNN_MARGIN = 2e-3, 0.9, 1e-3
 TRAIN_FLASH_CASES = (("MLA", (16, 16, 4096, 192, 128), {}),
                      ("qwen3", (40, 8, 4096, 128, 128), {}),
                      ("danube window", (32, 8, 5120, 120, 120),
@@ -594,6 +639,16 @@ def check(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def src_env() -> dict:
+    """This process's environment with the checkout's src/ on PYTHONPATH,
+    for the subprocesses that run the port's CLIs."""
+    import os
+
+    path = os.pathsep.join(filter(None, (str(ROOT / "src"),
+                                         os.environ.get("PYTHONPATH"))))
+    return dict(os.environ, PYTHONPATH=path)
 
 
 def events_ms(fn) -> float:
@@ -1830,14 +1885,10 @@ def dryrun_check(metrics: str, main_qps: float) -> dict:
     as a subprocess: its last line parses as JSON with fits_hbm true and
     calibrated_qps_per_device present; phase 4's measured QPS is printed
     as a share of its memory-bound bound."""
-    import os
-
-    path = os.pathsep.join(filter(None, (str(ROOT / "src"),
-                                         os.environ.get("PYTHONPATH"))))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.ann_dryrun",
          "--calibrated", metrics], cwd=ROOT, capture_output=True, text=True,
-        env=dict(os.environ, PYTHONPATH=path), timeout=300)
+        env=src_env(), timeout=300)
     check(out.returncode == 0, f"cost: ann_dryrun exited {out.returncode}: "
                                f"{out.stderr[-2000:]}")
     rec = json.loads(out.stdout.strip().splitlines()[-1])
@@ -5025,6 +5076,287 @@ def train_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 12. tools: the LM dry run and sharding tools, and the last two examples
+
+
+def alloc_bounds(sizes) -> tuple:
+    """(least, most) rise of torch.cuda.memory_allocated() when tensors of
+    `sizes` bytes are allocated on an emptied caching allocator. Its rule
+    (c10/cuda/CUDACachingAllocator.cpp): a request of n > 0 bytes takes a
+    block of n rounded up to a multiple of ALLOC_ROUND (512) bytes, and
+    memory_allocated counts the block. A block of the large pool (above
+    1 MiB) is split off a segment only when more than ALLOC_SLACK (1 MiB)
+    would be left; otherwise the whole segment is the block, so such a
+    request may take up to ALLOC_SLACK more."""
+    least = most = 0
+    for n in sizes:
+        if n == 0:
+            continue
+        r = -(-n // ALLOC_ROUND) * ALLOC_ROUND
+        least += r
+        most += r + (ALLOC_SLACK if r > ALLOC_SLACK else 0)
+    return least, most
+
+
+def dryrun_sweep_check(jobs: ToolsJobs) -> None:
+    """(a) the sweep subprocess's records: 80, none in error, the skips
+    exactly the cells shape_runnable refuses (the reference's rule,
+    tests/test_torch_dryrun.py); the largest per-device argument bytes and
+    every cell past HW.hbm_bytes logged; then report over the file, and
+    reterm over a copy, which must leave every analytic field as it is."""
+    import shutil
+
+    from repro_torch.configs import ARCHS, SHAPES, get_config
+    from repro_torch.configs.shapes import shape_runnable
+    from repro_torch.launch import report, reterm
+
+    code, _, err = jobs.out["sweep"]
+    check(code == 0, f"tools: the dry-run sweep exited {code}: "
+                     f"{err[-2000:]}")
+    path = jobs.sweep_path
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    check(len(recs) == len(ARCHS) * len(SHAPES) * 2,
+          f"tools: the sweep wrote {len(recs)} records")
+    bad = [(r["arch"], r["shape"], r["mesh"], r.get("error")) for r in recs
+           if r["status"] == "error"]
+    check(not bad, f"tools: dry-run cells in error: {bad}")
+    skipped = {(r["arch"], r["shape"]) for r in recs
+               if r["status"] == "skipped"}
+    want = {(a, s) for a in ARCHS for s in SHAPES
+            if not shape_runnable(get_config(a), SHAPES[s])[0]}
+    check(skipped == want, f"tools: skipped {sorted(skipped)}, "
+                           f"shape_runnable refuses {sorted(want)}")
+    ok = [r for r in recs if r["status"] == "ok"]
+    top = max(ok, key=lambda r: r["mem"]["argument_bytes"])
+    unfit = [(r["arch"], r["shape"], r["mesh"], r["mem"]["argument_bytes"])
+             for r in ok if not r["mem"]["fits_hbm"]]
+    log(f"[tools] (a) dry run: {len(recs)} records, {len(ok)} ok, "
+        f"{len(skipped) * 2} skipped, 0 error; largest arguments a device "
+        f"{top['mem']['argument_bytes']} B ({top['arch']} {top['shape']} "
+        f"{top['mesh']}); past {HW().hbm_bytes:.0f} B: {unfit or 'none'}")
+    report.main([str(path)])
+    fresh = path.with_name("reterm.jsonl")
+    shutil.copy(path, fresh)
+    reterm.main([str(fresh)])
+    keys = ("flops_per_dev", "bytes_per_dev", "coll_bytes_analytic",
+            "compute_s", "memory_s", "collective_s", "dominant",
+            "compute_fraction", "model_flops_total", "model_flops_per_dev",
+            "useful_flops_ratio")
+    again = [json.loads(line) for line in fresh.read_text().splitlines()]
+    moved = [(a["arch"], a["shape"], a["mesh"]) for a, b in zip(recs, again)
+             if any(a.get(k) != b.get(k) for k in keys)]
+    check(len(again) == len(recs) and not moved,
+          f"tools: reterm moved the analytic fields of {moved}")
+
+
+def card_bytes_check(arch: str) -> None:
+    """(b) the dry run's bytes of one cell against the card's allocation:
+    lower_cell on a one-slot mesh of this card at phase 8's decode cell
+    (B = LM_B, a cache of LM_S positions), full width and depth; then the
+    same parameters (model_skeleton: torch.empty), cache, tokens and pos
+    allocated on the card, uninitialised. Gate 1: argument_bytes is the
+    sum of the tensors' nbytes. Gate 2: the rise of memory_allocated lies
+    within alloc_bounds of their sizes."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeCfg, cache_spec
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import leaves
+    from repro_torch.models.transformer import model_skeleton
+
+    cfg = get_config(arch)
+    shape = ShapeCfg("card", "decode", LM_S, LM_B)
+    mesh = make_mesh((1, 1), ("data", "model"), devices=DEVICE)
+    rec = lower_cell(arch, shape, mesh=mesh)
+    check(rec["status"] == "ok", f"tools: {arch}: {rec}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    params = model_skeleton(cfg, DEVICE)
+    cache = {p: torch.empty(t.shape, dtype=t.dtype, device=DEVICE)
+             for p, t in leaves(cache_spec(cfg, shape))}
+    tokens = torch.empty((LM_B, 1), dtype=torch.int32, device=DEVICE)
+    pos = torch.empty((), dtype=torch.int32, device=DEVICE)
+    tensors = [*params.parameters(), *cache.values(), tokens, pos]
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - before
+    sizes = [t.nbytes for t in tensors]
+    least, most = alloc_bounds(sizes)
+    want = rec["mem"]["argument_bytes"]
+    log(f"[tools] (b) {arch}: argument_bytes {want}, the tensors' nbytes "
+        f"{sum(sizes)} ({len(tensors)} tensors), memory_allocated rose "
+        f"{rise} (allocator bounds [{least}, {most}]), alias_bytes "
+        f"{rec['mem']['alias_bytes']}, fits_hbm {rec['mem']['fits_hbm']}")
+    check(want == sum(sizes), f"tools: {arch}: argument_bytes {want} != "
+                              f"{sum(sizes)} allocated")
+    check(least <= rise <= most, f"tools: {arch}: memory_allocated rose "
+                                 f"{rise}, outside [{least}, {most}]")
+    del params, cache, tokens, pos, tensors
+    torch.cuda.empty_cache()
+
+
+def load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def knn_cpu_worker() -> dict:
+    """Worker process: (c)'s kNN-LM run on the CPU, its weights drawn by
+    `init_params` on the CPU from seed 0; the run's outputs and seconds."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.transformer import init_params
+
+    torch.set_num_threads(1)
+    knn = load_example("torch_knn_lm_decode")
+    t0 = time.perf_counter()
+    out = knn.run("cpu", params=init_params(reduced_config(knn.ARCH),
+                                            device="cpu"))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+class ToolsJobs:
+    """Phase 12's jobs that need no card of their own: (a)'s sweep and the
+    quickstart as subprocesses, and (c)'s kNN-LM run on the CPU in a worker
+    of the build pool. They start when phase 3 (whose timings include host
+    time) is done, run beside phase 4's index build (set-up, which nothing
+    times) and are waited for before phase 4's timed batches."""
+
+    def __init__(self, tmp: str, pool):
+        self.sweep_path = Path(tmp) / "dryrun.jsonl"
+        cmds = {"sweep": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--arch", "all", "--shape", "all", "--mesh",
+                          "both", "--out", str(self.sweep_path), "--quiet"],
+                "quickstart": [sys.executable,
+                               str(ROOT / "examples" / "torch_quickstart.py"),
+                               "--n", "2000", "--dim", "64", "--partitions",
+                               "2"]}
+        env = src_env()
+        self.procs = {name: subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for name, cmd in cmds.items()}
+        self.knn_cpu = pool.submit(knn_cpu_worker)
+        self.out = {}
+
+    def wait(self) -> None:
+        """Each subprocess's (exit code, stdout, stderr) into `out`; the
+        kNN-LM worker done."""
+        for name, proc in self.procs.items():
+            if name not in self.out:
+                stdout, stderr = proc.communicate(timeout=600)
+                self.out[name] = (proc.returncode, stdout, stderr)
+        concurrent.futures.wait([self.knn_cpu])
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def knn_lm_check(want: dict) -> dict:
+    """(c) the kNN-LM example on the card against its CPU run (`want`,
+    knn_cpu_worker's), the same weights (init_params on the CPU from seed
+    0, moved to the card): each step's LM log-probabilities within
+    KNN_LM_TOL, retrieved ids overlapping >= KNN_ID_OVERLAP, both mixed
+    distributions finite, the decoded token equal wherever the CPU's
+    top-2 margin exceeds KNN_MARGIN (steps under it are logged). The
+    launch counters are set to 0 just before the card's run and read just
+    after: traversal_async.cu and flash_attention.cu (float32) > 0,
+    traversal.cu and the tensor-core flash kernel 0."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import attention
+    from repro_torch.kernels import traversal as tr
+    from repro_torch.models.transformer import init_params
+
+    knn = load_example("torch_knn_lm_decode")
+    params = init_params(reduced_config(knn.ARCH), device="cpu").to(DEVICE)
+    tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
+    attention.TC_LAUNCHES = attention.FMA_LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = knn.run(DEVICE, params=params)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launches = {"traversal_async": tr.ASYNC_LAUNCHES, "traversal": tr.LAUNCHES,
+                "flash_attention_fma": attention.FMA_LAUNCHES,
+                "flash_attention": attention.TC_LAUNCHES}
+    log(f"[tools] (c) kNN-LM: {got['memories']} memories, {knn.STEPS} steps "
+        f"of B={knn.B}; card {t_card:.1f}s, CPU {want['seconds']:.1f}s (its "
+        f"worker); launches {launches}")
+    check(launches["traversal_async"] > 0 and launches["traversal"] == 0,
+          f"tools: kNN-LM traversal launches {launches}")
+    check(launches["flash_attention_fma"] > 0
+          and launches["flash_attention"] == 0,
+          f"tools: kNN-LM flash launches {launches}")
+    check(np.isfinite(got["mixed"]).all() and np.isfinite(want["mixed"]).all(),
+          "tools: kNN-LM mixed log-probabilities not finite")
+    worst_lm, worst_overlap = 0.0, 1.0
+    for t in range(knn.STEPS):
+        d = np.abs(got["lm_logp"][t] - want["lm_logp"][t])
+        bar = KNN_LM_TOL + KNN_LM_TOL * np.abs(want["lm_logp"][t])
+        check(bool((d <= bar).all()), f"tools: kNN-LM step {t}: LM "
+                                      f"log-probs differ by {d.max()}")
+        worst_lm = max(worst_lm, float(d.max()))
+        for b in range(knn.B):
+            share = len(set(got["ids"][t, b]) & set(want["ids"][t, b])) \
+                / got["ids"].shape[2]
+            worst_overlap = min(worst_overlap, share)
+            check(share >= KNN_ID_OVERLAP, f"tools: kNN-LM step {t} row {b}"
+                                           f": ids overlap {share}")
+        top = np.sort(want["mixed"][t], -1)
+        margin = top[:, -1] - top[:, -2]
+        for b in np.flatnonzero(margin <= KNN_MARGIN):
+            log(f"[tools] (c) step {t} row {b}: top-2 margin "
+                f"{margin[b]:.2e} under {KNN_MARGIN}; tokens card "
+                f"{got['tokens'][b, t]}, CPU {want['tokens'][b, t]}")
+        sure = margin > KNN_MARGIN
+        check(np.array_equal(got["tokens"][sure, t],
+                             want["tokens"][sure, t]),
+              f"tools: kNN-LM step {t}: tokens {got['tokens'][:, t]} on the "
+              f"card, {want['tokens'][:, t]} on the CPU")
+    log(f"[tools] (c) kNN-LM card = CPU: max |d lm_logp| {worst_lm:.3e}, "
+        f"least ids overlap {worst_overlap:.3f}, tokens "
+        f"{got['tokens'].tolist()}")
+    return {"launches": launches}
+
+
+def quickstart_check(jobs: ToolsJobs) -> None:
+    """(c) examples/torch_quickstart.py on the card (a subprocess): exit 0,
+    its three recall lines and OK."""
+    code, out, err = jobs.out["quickstart"]
+    check(code == 0, f"tools: the quickstart exited {code}: {err[-2000:]}")
+    lines = out.strip().splitlines()
+    recall = [ln for ln in lines if "recall@10" in ln]
+    for ln in recall:
+        log(f"[tools] (c) quickstart: {ln}")
+    check(len(recall) == 3 and lines[-1] == "OK",
+          f"tools: the quickstart printed {lines[-6:]}")
+
+
+def tools_phase(jobs: ToolsJobs) -> dict:
+    """12. (b), then (c)'s card run against its CPU run; then (a) and the
+    quickstart, from the jobs that ran beside phase 4's build (waited
+    for here where no main path ran)."""
+    t_phase = time.perf_counter()
+    for arch in TOOLS_ARCHS:
+        card_bytes_check(arch)
+    log(f"[tools] (b) {time.perf_counter() - t_phase:.1f}s into the phase")
+    out = knn_lm_check(jobs.knn_cpu.result())
+    log(f"[tools] (c) kNN-LM {time.perf_counter() - t_phase:.1f}s into the "
+        f"phase")
+    jobs.wait()
+    dryrun_sweep_check(jobs)
+    quickstart_check(jobs)
+    log(f"[tools] phase {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_row(name, source, replaces, launches, err, timing, bound_by):
@@ -5040,11 +5372,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernel,main,quant,csd,cost,serve,ingest,"
-                            "cluster,scan,lm,dense,ssm,train",
+                            "cluster,scan,lm,dense,ssm,train,tools",
                     help="comma list of kernel,main,quant,csd,cost,serve,"
-                         "ingest,cluster,scan,lm,dense,ssm,train (card and "
-                         "build always run; serve and cost need csd, csd "
-                         "needs quant, quant, ingest and cluster need main)")
+                         "ingest,cluster,scan,lm,dense,ssm,train,tools "
+                         "(card and build always run; serve and cost need "
+                         "csd, csd needs quant, quant, ingest and cluster "
+                         "need main)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -5063,7 +5396,14 @@ def main(argv=None) -> int:
         phases.add("quant")
     if phases & {"quant", "ingest", "cluster"}:
         phases.add("main")
+    # every process a phase starts is stopped on the way out
+    with contextlib.ExitStack() as stack:
+        return run_phases(phases, stack, t_all)
 
+
+def run_phases(phases: set, stack: contextlib.ExitStack, t_all: float
+               ) -> int:
+    """Phases 1-12 as `phases` asks; the kernels line and the last line."""
     # 1. card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5111,6 +5451,13 @@ def main(argv=None) -> int:
         # 3. kernel
         if "kernel" in phases:
             kern = kernel_phase(1_000_000, seed=0)
+        # phase 12's jobs that need no card of their own: after phase 3's
+        # timings, beside phase 4's build
+        jobs = None
+        if "tools" in phases:
+            jobs = ToolsJobs(stack.enter_context(
+                tempfile.TemporaryDirectory()), pool)
+            stack.callback(jobs.stop)
         # 4. main
         if "main" in phases:
             data, queries = main_data(N_MAIN, N_QUERIES)
@@ -5125,12 +5472,14 @@ def main(argv=None) -> int:
             for dt, fut in builds.items():
                 log(f"[build] {dt}: SearchService.build {fut.result():.1f}s "
                     f"in its worker (saved)")
-            if builds:
-                # no build competes with a timed batch: the workers exit
+            if jobs:
+                jobs.wait()
+            if builds or jobs:
+                # no build or tools job competes with a timed batch: the
+                # workers exit
                 pool.shutdown(wait=True)
-            if builds:
                 log(f"[build] waited {time.perf_counter() - t0:.1f}s for the "
-                    f"workers' builds")
+                    f"workers' builds{' and the tools jobs' if jobs else ''}")
             main_out = main_phase(svc, data, queries)
             # 5. timing
             timing = timing_phase(svc, queries[:BATCH], "main")
@@ -5185,6 +5534,11 @@ def main(argv=None) -> int:
     if "train" in phases:
         torch.cuda.empty_cache()
         trained = train_phase(seed=0)
+    # 12. tools, after the train phase's model is freed
+    tools = None
+    if "tools" in phases:
+        torch.cuda.empty_cache()
+        tools = tools_phase(jobs)
 
     csrc = "src/repro_torch/kernels/csrc/"
     trav = "src/repro/kernels/traversal.py:234"
@@ -5198,6 +5552,8 @@ def main(argv=None) -> int:
         if dt == "float32":   # the serve, ingest and cluster phases too
             launches += sum(x["launches"] for x in (served, ingest, clustered)
                             if x)
+            if tools:         # the kNN-LM example's datastore searches
+                launches += tools["launches"]["traversal_async"]
         rows.append(kernel_row(f"fused_traversal_async{sfx}",
                                csrc + "traversal_async.cu", trav, launches,
                                kern.get(("async", dt)), t, "bytes"))
@@ -5268,6 +5624,8 @@ def main(argv=None) -> int:
                  "topk_stream").index(name)]
             if name in trained["fwd_err"]:   # (a)'s forward checks
                 err = max(err or 0.0, trained["fwd_err"][name])
+        if tools and name.startswith("flash"):   # the kNN-LM example's LM
+            launches += tools["launches"][name]
         row = kernel_row(name, csrc + source, replaces, launches, err, t,
                          t["bound_by"] if t else bound_by)
         if dense and name.startswith("flash"):

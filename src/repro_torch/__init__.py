@@ -9,7 +9,9 @@ It imports `torch` and numpy only — never `jax`, and nothing from
 
 Entry points run on the card unless the caller asks for the CPU:
 `resolve_device(None)` is `cuda` and raises when no CUDA device is
-visible; `device="cpu"` must be passed explicitly (the tests do).
+visible; `device="cpu"` must be passed explicitly (the tests do), and so
+must `device="meta"` (shapes and dtypes without storage, what the dry
+run builds its state on).
 """
 
 from __future__ import annotations
@@ -24,12 +26,13 @@ def resolve_device(device=None) -> torch.device:
 
     Raises RuntimeError when CUDA is asked for (explicitly or by default)
     and `torch.cuda.is_available()` is False — there is no silent fallback
-    to the CPU."""
+    to the CPU. "meta" is accepted only when passed explicitly."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' explicitly to "
             "run the plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda', 'cpu' or "
+                         f"'meta'")
     return dev

@@ -1,7 +1,8 @@
 """Architecture registry of the port: get_config / reduced_config for the
 reference's ten architectures (the reference's `repro.configs`), in its
-order. Each module defines CONFIG (full size) and REDUCED (CPU tests),
-field for field the reference's.
+order, and the dry run's cells (`SHAPES`, `input_specs`, `cache_spec`).
+Each module defines CONFIG (full size) and REDUCED (CPU tests), field
+for field the reference's.
 """
 
 from __future__ import annotations
@@ -23,8 +24,6 @@ ARCHS = [
 
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
-__all__ = ["ARCHS", "get_config", "list_archs", "reduced_config"]
-
 
 def _module(name: str):
     name = ALIASES.get(name, name).replace("-", "_").replace(".", "")
@@ -43,3 +42,9 @@ def reduced_config(name: str):
 
 def list_archs():
     return list(ARCHS)
+
+
+from repro_torch.configs.shapes import SHAPES, cache_spec, input_specs  # noqa: E402
+
+__all__ = ["ARCHS", "get_config", "list_archs", "reduced_config",
+           "SHAPES", "input_specs", "cache_spec"]

@@ -45,21 +45,12 @@ from repro_torch.core.search import SearchParams, bitmap_words
 from repro_torch.launch.costmodel import (cluster_fanout_cost,
                                           compaction_cost, dispatch_cost,
                                           storage_cost, vector_row_bytes)
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import HW
 
-__all__ = ["production_mesh", "sift1b_db_specs", "batch_working_set",
-           "dryrun", "main"]
+__all__ = ["sift1b_db_specs", "batch_working_set", "dryrun", "main"]
 
 P_PARTS = 256
-
-
-def production_mesh(multi_pod: bool = False):
-    """The reference's production mesh, (16, 16) over ("data", "model") or
-    (2, 16, 16) over ("pod", "data", "model"), as slots on "meta"."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, devices="meta")
 
 
 def sift1b_db_specs(n_total=1_000_000_000, dim=128, M=16, levels=7):
@@ -99,7 +90,7 @@ def batch_working_set(lanes: int, n_pad: int, cand: int, ef: int) -> int:
 def dryrun(multi_pod: bool = False, batch: int = 4096,
            calibrated: str | None = None, hw: HW = HW()) -> dict:
     """The record `main` prints (the reference's keys and sections)."""
-    mesh = production_mesh(multi_pod)
+    mesh = make_production_mesh(multi_pod=multi_pod)
     db, n_pad, d_pad, m0p = sift1b_db_specs()
     p = SearchParams(ef=40, k=10)                 # the paper's SIFT1B point
     qaxes = ("pod",) if multi_pod else ()

@@ -9,18 +9,30 @@ device: the port's counterpart of XLA's
 card, can run a mesh of several slots.
 
 The `model` axis carries graph parallelism (partitions shard over it, the
-paper's §6.3); `data` / `pod` carry query parallelism. Functions, not
-module constants: importing this module touches no device.
+paper's §6.3) and the LM's TP / EP; `data` / `pod` carry query
+parallelism and the LM's DP / FSDP. Functions, not module constants:
+importing this module touches no device.
+
+The reference's production meshes:
+  Single pod : (16, 16)    = 256 chips, axes (data, model)
+  Multi-pod  : (2, 16, 16) = 512 chips, axes (pod, data, model)
+`make_production_mesh` gives them as slots on "meta" (the dry runs price
+them without a device), and `enter_mesh` gives a mesh's axis sizes to
+`models.shard_ctx`, as `jax.set_mesh` does for the reference.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import shard_ctx
 
-__all__ = ["Mesh", "make_mesh", "dp_axes", "mesh_shape"]
+__all__ = ["Mesh", "dp_axes", "enter_mesh", "make_mesh",
+           "make_production_mesh", "mesh_shape"]
 
 
 class Mesh:
@@ -70,6 +82,23 @@ def make_mesh(shape, axes, devices=None) -> Mesh:
     grid = np.empty(size, dtype=object)
     grid[:] = devs
     return Mesh(grid.reshape(shape), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """(16, 16) over ("data", "model"), or with `multi_pod` (2, 16, 16)
+    over ("pod", "data", "model"), every slot on "meta"."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices="meta")
+
+
+@contextlib.contextmanager
+def enter_mesh(mesh: Mesh):
+    """Inside the block, `models.shard_ctx` reads `mesh`'s axis sizes
+    (`shard_ctx.mesh_context`); the sizes before are restored on leaving
+    it."""
+    with shard_ctx.mesh_context(mesh.shape):
+        yield mesh
 
 
 def dp_axes(mesh) -> tuple[str, ...]:

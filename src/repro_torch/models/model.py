@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch.models import shard_ctx
 from repro_torch.models.params import reference_order
 from repro_torch.models.transformer import (
     ModelConfig,
@@ -63,7 +64,9 @@ def train_step(state: dict, batch: dict, cfg: ModelConfig,
     """One optimizer step on `batch` (tensors on the parameters' device;
     a 0-d entry such as prefix_len an int) -> (state, metrics {"loss",
     "xent", "aux", "grad_norm", "lr"}: 0-d tensors). The batch is split
-    into M = gcd(grad_accum, B) microbatches of consecutive rows; each
+    into M = gcd(grad_accum, B) microbatches of consecutive rows, M halved
+    while a microbatch's rows are not a multiple of the data-parallel
+    extent (`shard_ctx.dp_size()`, 1 with no sharding context); each
     microbatch's gradients are cast to float32, divided by M and added in
     microbatch order (the reference's accumulator); loss and metrics are
     the microbatches' means. The parameters, m, v and step are updated in
@@ -79,6 +82,9 @@ def train_step(state: dict, batch: dict, cfg: ModelConfig,
               if isinstance(v, torch.Tensor) and v.dim() > 0}
     B = next(iter(arrays.values())).shape[0]
     M = math.gcd(max(cfg.grad_accum, 1), B)
+    dpn = shard_ctx.dp_size()
+    while M > 1 and (B // M) % dpn != 0:
+        M //= 2
     if M == 1:
         loss, metrics = _loss_and_grads(model, cfg, batch, params)
         grads = metrics.pop("grads")

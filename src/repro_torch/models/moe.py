@@ -6,7 +6,8 @@ Routing is a 1-hop nearest-centroid search, so with
 hand-written `kernels.ops.topk` (the reference's `topk_pallas`).
 
 Dispatch: tokens are split into G groups exactly as the reference
-splits them with no sharding context (dp = tp = 1), repeated k times,
+splits them (`_factor_groups`, which reads the data- and model-parallel
+extents of `models.shard_ctx`: 1 and 1 with no context), repeated k times,
 sorted by expert id (stably), truncated at the per-expert capacity
 C = max(ceil(k * Sg / E * capacity_factor), 4), and moved with one
 scatter and one gather; slots past capacity go to a spill row at E * C
@@ -33,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import shard_ctx
 from repro_torch.models.layers import Params
 
 __all__ = ["MoEConfig", "moe_init", "moe_apply"]
@@ -92,10 +94,20 @@ def _route(logits, k: int, use_kernel: bool):
 
 
 def _factor_groups(B: int, T: int) -> tuple[int, int]:
-    """(Gb, Gt): the reference's batch-block x seq-block group factors with
-    no sharding context (dp = tp = 1), where its rule gives Gb = 1 and Gt
-    the first of (8, 4, 2, 1) that divides T."""
-    return 1, next(c for c in (8, 4, 2, 1) if T % c == 0)
+    """(Gb, Gt): the reference's batch-block x seq-block group factors.
+    Gb is the first of (dp, 32, 16, ..., 1) that divides B; Gt the first
+    of (8 tp, 4 tp, 2 tp, tp, 16, 8, 4, 2, 1) that divides T with Gb Gt a
+    multiple of dp tp, else the first of (16, 8, 4, 2, 1) that divides T
+    (dp, tp: `shard_ctx.dp_size()`, `tp_size()`). With no sharding context
+    (dp = tp = 1) that is Gb = 1 and Gt the first of (8, 4, 2, 1) that
+    divides T."""
+    dpn, tpn = shard_ctx.dp_size(), shard_ctx.tp_size()
+    world = max(dpn * tpn, 1)
+    gb = next(g for g in (dpn, 32, 16, 8, 4, 2, 1) if g >= 1 and B % g == 0)
+    for cand in (tpn * 8, tpn * 4, tpn * 2, tpn, 16, 8, 4, 2, 1):
+        if cand >= 1 and T % cand == 0 and (gb * cand) % world == 0:
+            return gb, cand
+    return gb, next(g for g in (16, 8, 4, 2, 1) if T % g == 0)
 
 
 def _dispatch_plan(idx, gate, E: int, C: int):

@@ -106,5 +106,7 @@ def test_resolve_device(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    # "meta" (the dry run's abstract state) only when asked for by name
+    assert resolve_device("meta") == torch.device("meta")
     with pytest.raises(ValueError):
-        resolve_device("meta")
+        resolve_device("mps")
