@@ -240,6 +240,13 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                beside its plain version, a library yardstick (torch.addmm,
                then torch.topk for the fused scans; timed only) and its
                bound, the two routes of each kernel on the same inputs.
+               Last, the exact uint8 service over the same rows with the
+               port's TRACER on (`exact_spans`): one request of 256
+               queries records search > encode, upload, scan, scan's work
+               counts equal the backend's, its CUDA event pair gives its
+               device ms, and under torch.profiler the spans are host
+               ranges; prints each span's host ms and the scan's device
+               ms.
   8. lm      — the LM substrate, last, after torch.cuda.empty_cache():
                deepseek-v2-lite-16b at full width and depth (27 layers, d
                2048, 16 MLA heads, 64 experts top-6, vocab 102,400; 15.7 B
@@ -3182,6 +3189,73 @@ def scan_timing(tabs, reps: int = 5) -> dict:
     return out
 
 
+def exact_spans(tabs) -> dict:
+    """The exact uint8 service over the scan phase's rows, one request of
+    BATCH queries after an untraced one, the port's TRACER on: `search`
+    with the children `encode`, `upload` and `scan`; scan's work counts
+    equal to the backend's (rows padded by less than a chunk), encode's
+    queries, upload's bytes; scan's CUDA event pair resolved (`dev_ms`);
+    and, a third request under torch.profiler, the four spans as host
+    ranges. Returns each span's host ms and scan's device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import IndexSpec, SearchRequest, SearchService
+    from repro_torch.obs import TRACER
+
+    x, q = tabs["float32"][0], tabs["float32"][1]
+    svc = SearchService.build(x.cpu().numpy(),
+                              IndexSpec(backend="exact", dtype="uint8"),
+                              device=DEVICE)
+    req = SearchRequest(q[:BATCH].cpu().numpy(), k=SCAN_K)
+    svc.search(req).ids.cpu()
+    TRACER.configure(enabled=True, sample_rate=1.0)
+    TRACER.clear()
+    try:
+        svc.search(req).ids.cpu()
+        spans = TRACER.spans()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            svc.search(req).ids.cpu()
+        ranges = {e.name for e in prof.events()}
+    finally:
+        TRACER.configure(enabled=False)
+        TRACER.clear()
+    ids = {ev["id"]: ev["name"] for ev in spans}
+    tree = {ev["name"]: ids.get(ev["parent"]) for ev in spans}
+    check(len(spans) == 4 and tree == {"search": None, "encode": "search",
+                                       "upload": "search", "scan": "search"},
+          f"the exact service's spans {tree}: expected search > encode, "
+          f"upload, scan")
+    by = {ev["name"]: ev for ev in spans}
+    be = svc.backend
+    rows = be.vectors.shape[0]
+    check(by["scan"]["attrs"] == {"rows": rows, "chunks": rows // be.CHUNK,
+                                  "queries": BATCH, "k": SCAN_K}
+          and rows % be.CHUNK == 0 and 0 <= rows - N_SCAN < be.CHUNK,
+          f"scan's counts {by['scan']['attrs']}: expected {N_SCAN} rows "
+          f"padded to chunks of {be.CHUNK}, {BATCH} queries, k {SCAN_K}")
+    check(by["encode"]["attrs"] == {"queries": BATCH}
+          and by["upload"]["attrs"] == {"bytes": BATCH * x.shape[1] * 4},
+          f"encode's / upload's counts {by['encode']['attrs']} / "
+          f"{by['upload']['attrs']}: expected {BATCH} float32 queries")
+    check(by["scan"].get("dev_ms", 0.0) > 0.0,
+          f"scan's device clock unresolved: {by['scan']}")
+    check(set(tree) <= ranges, f"the spans are not profiler ranges under "
+          f"torch.profiler: {sorted(set(tree) - ranges)} missing")
+    out = {n: (ev["t1"] - ev["t0"]) * 1e3 for n, ev in by.items()}
+    out["scan_dev"] = by["scan"]["dev_ms"]
+    log(f"[scan] exact uint8 service, {BATCH} queries over {N_SCAN} rows "
+        f"({rows // be.CHUNK} chunks), by TRACER span, host ms: search "
+        f"{out['search']:.3f} = encode {out['encode']:.3f} + upload "
+        f"{out['upload']:.3f} + scan {out['scan']:.3f} (device "
+        f"{out['scan_dev']:.3f}) + the rest "
+        f"{out['search'] - out['encode'] - out['upload'] - out['scan']:.3f}"
+        f"; the spans are profiler ranges")
+    del svc
+    torch.cuda.empty_cache()
+    return out
+
+
 def scan_phase(seed: int) -> dict:
     from repro_torch.core.bruteforce import bruteforce_topk
     from repro_torch.kernels import qdist as qd
@@ -3228,6 +3302,7 @@ def scan_phase(seed: int) -> dict:
     torch.cuda.empty_cache()
     err = scan_kernel_checks(tabs, g)
     timing = scan_timing(tabs)
+    exact_spans(tabs)
     return {name: {"launches": launches[name], "err": err[name],
                    "timing": timing[name]} for name in launches}
 

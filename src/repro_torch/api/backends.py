@@ -41,6 +41,7 @@ from repro_torch.core.partitioned import (
 )
 from repro_torch.core.search import SearchParams
 from repro_torch.kernels.ops import pq_topk
+from repro_torch.obs.trace import TRACER
 from repro_torch.optim.compression import build_pq_lut
 
 __all__ = ["register_backend", "get_backend", "available_backends",
@@ -94,7 +95,11 @@ class ExactBackend:
     uint8/int8: `raw` is the code table, scanned as is (exact: integer
     dot products below 2^24), and distances are rescaled by scale**2.
     pq: `raw` is the float32 rows (build) or the [n, M] code table
-    (checkpoint); the scan is the fused ADC top-k over the codes."""
+    (checkpoint); the scan is the fused ADC top-k over the codes.
+
+    A search records the spans `upload` (the queries becoming a device
+    tensor; `bytes`) and, but for pq, `scan` (the chunked scan, on the
+    device's clock too; `rows` padded, `chunks`, `queries`, `k`)."""
 
     uses_graph = False
     CHUNK = 512
@@ -135,14 +140,21 @@ class ExactBackend:
 
     def search(self, queries, k: int, ef: int, rerank: bool,
                with_stats: bool):
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        with TRACER.child_span("upload") as span:
+            q = torch.as_tensor(queries, dtype=torch.float32,
+                                device=self.device)
+            span.set(bytes=q.nbytes)
         if self.is_pq:
             dists, ids = pq_topk(build_pq_lut(q, self.codebooks), self.codes,
                                  k=k)
         else:
-            ids, dists = bruteforce_topk(self.vectors, self.sqnorms, q, k=k,
-                                         chunk=self.CHUNK,
-                                         metric=self.spec.metric)
+            rows = self.vectors.shape[0]
+            with TRACER.child_span("scan", device_clock=self.device,
+                                   rows=rows, chunks=rows // self.CHUNK,
+                                   queries=q.shape[0], k=k):
+                ids, dists = bruteforce_topk(self.vectors, self.sqnorms, q,
+                                             k=k, chunk=self.CHUNK,
+                                             metric=self.spec.metric)
             if self.quant is not None:    # code space -> real space
                 dists = dists * float(np.float32(self.quant.dist_scale))
         stats = None

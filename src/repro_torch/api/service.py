@@ -120,7 +120,8 @@ class SearchService:
         queries stay float32 (asymmetric distance). Emits the reference's
         `search` span and its `api_searches_total` / `api_queries_total`
         counters; the span parents on `request.trace` when the calling
-        thread has no open span."""
+        thread has no open span. The query preparation, where there is
+        any (normalizing, encoding to codes), is its `encode` child."""
         if not isinstance(request, SearchRequest):
             request = SearchRequest(queries=request)
         # nest under this thread's open span when there is one (a replica's
@@ -136,13 +137,14 @@ class SearchService:
         with span:
             q = request.queries
             scalar = self.quantizer is not None and self.spec.dtype != "pq"
-            if isinstance(q, torch.Tensor) and (self.metric.normalize_queries
-                                                or scalar):
-                q = q.cpu().numpy()
-            if self.metric.normalize_queries:
-                q = self.metric.prepare_queries(np.asarray(q))
-            if scalar:
-                q = self.quantizer.encode_f32(np.asarray(q))
+            if self.metric.normalize_queries or scalar:
+                with TRACER.child_span("encode", queries=len(q)):
+                    if isinstance(q, torch.Tensor):
+                        q = q.cpu().numpy()
+                    if self.metric.normalize_queries:
+                        q = self.metric.prepare_queries(np.asarray(q))
+                    if scalar:
+                        q = self.quantizer.encode_f32(np.asarray(q))
             ids, dists, stats = self.backend.search(
                 q, k=request.k, ef=request.ef, rerank=request.rerank,
                 with_stats=request.with_stats)

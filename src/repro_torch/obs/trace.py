@@ -31,6 +31,19 @@ disabled overhead budget):
                       `record_span(t0, t1, ...)` — zero hot-path cost.
   * bounded         : at most `max_events` spans are kept; later spans are
                       counted in `dropped` instead of growing memory.
+  * device clock    : a child span that launches device work may pass
+                      `device_clock=<device>`; on a CUDA device it is then
+                      bracketed by two CUDA events on the device's current
+                      stream. They are resolved lazily, in `spans()`,
+                      after waiting for them there, never in the request:
+                      the span gains `dev_ms`, the device's time between
+                      them.
+  * profiler clock  : while a torch profiler is recording, every sampled
+                      span also opens `record_function(<span name>)`, so
+                      the program's layers are host ranges of the same
+                      Kineto trace as the kernels.
+
+torch is only looked up on the enabled path, and imported only there.
 
 Span identity is exported into each trace event's `args` (`span_id`,
 `parent_id`, `trace_id`) so tests and the per-stage benchmark can rebuild
@@ -41,6 +54,7 @@ from __future__ import annotations
 
 import json
 import random
+import sys
 import threading
 import time
 
@@ -116,11 +130,13 @@ class Span:
     """One live sampled span; records itself on exit."""
 
     __slots__ = ("_tracer", "_stack", "name", "attrs", "trace_id",
-                 "span_id", "parent_id", "t0", "t1")
+                 "span_id", "parent_id", "t0", "t1", "_clock", "_rf",
+                 "_cuda")
     sampled = True
 
     def __init__(self, tracer: "Tracer", stack: list, name: str,
-                 trace_id: int, span_id: int, parent_id: int, attrs: dict):
+                 trace_id: int, span_id: int, parent_id: int, attrs: dict,
+                 clock=None):
         self._tracer = tracer
         self._stack = stack
         self.name = name
@@ -130,6 +146,9 @@ class Span:
         self.parent_id = parent_id
         self.t0 = 0.0
         self.t1 = 0.0
+        self._clock = clock      # a CUDA device to bracket with events
+        self._rf = None          # the open record_function, under a profiler
+        self._cuda = None        # (stream, start, end)
 
     @property
     def ctx(self) -> SpanCtx:
@@ -140,14 +159,28 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._stack.append(self)
+        torch = sys.modules.get("torch")
+        if torch is not None and torch.autograd._profiler_enabled():
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
         self.t0 = time.perf_counter()
+        if self._clock is not None:
+            self._cuda = self._tracer._start_events(self._clock)
         return self
 
     def __exit__(self, *exc):
+        events = None
+        if self._cuda is not None:
+            stream, start, end = self._cuda
+            end.record(stream)
+            events = (start, end)
         self.t1 = time.perf_counter()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
         self._stack.pop()
         self._tracer._record(self.name, self.t0, self.t1, self.trace_id,
-                             self.span_id, self.parent_id, None, self.attrs)
+                             self.span_id, self.parent_id, None, self.attrs,
+                             events)
         return False
 
 
@@ -218,7 +251,7 @@ class Tracer:
         return r >= 1.0 or (r > 0.0 and self._rng.random() < r)
 
     def _record(self, name, t0, t1, trace_id, span_id, parent_id, tid,
-                attrs) -> None:
+                attrs, cuda=None) -> None:
         p = self.profiler
         if p is not None and p.enabled:
             # before the max_events bound: profiling aggregates are O(1)
@@ -228,11 +261,39 @@ class Tracer:
               "id": span_id, "parent": parent_id,
               "tid": tid if tid is not None else threading.current_thread().name,
               "attrs": attrs or {}}
+        if cuda is not None:
+            ev["_cuda"] = cuda       # (start, end): see _resolve
         with self._lock:
             if len(self._events) >= self.max_events:
                 self.dropped += 1
                 return
             self._events.append(ev)
+
+    # -- the device's clock --------------------------------------------------
+
+    def _start_events(self, device) -> tuple:
+        """(stream, start, end) for a span on the CUDA `device`, with
+        `start` recorded on its current stream."""
+        import torch
+
+        device = torch.device(device)
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        stream = torch.cuda.current_stream(index)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        return stream, start, end
+
+    def _resolve(self) -> None:
+        """Give each recorded span that holds CUDA events its `dev_ms`,
+        waiting here for the events to complete."""
+        with self._lock:
+            pending = [(ev, ev.pop("_cuda")) for ev in self._events
+                       if "_cuda" in ev]
+        for ev, (start, end) in pending:
+            end.synchronize()
+            ev["dev_ms"] = start.elapsed_time(end)
 
     # -- span creation -------------------------------------------------------
 
@@ -271,11 +332,14 @@ class Tracer:
         return Span(self, stack, name, parent.trace_id, self._ids(),
                     parent.span_id, attrs)
 
-    def child_span(self, name: str, **attrs):
+    def child_span(self, name: str, device_clock=None, **attrs):
         """A span ONLY if a sampled span is already open on this thread —
         never starts a new trace. The inner layers (store reads, hops,
         segments) use this so background work (prefetch threads, health
-        probes) cannot spawn stray root traces."""
+        probes) cannot spawn stray root traces.
+
+        device_clock : the device the span's work runs on; a CUDA device
+                       brackets the span with CUDA events (`dev_ms`)."""
         if not self.enabled:
             p = self.profiler
             if p is not None and p.enabled:
@@ -285,8 +349,9 @@ class Tracer:
         top = stack[-1] if stack else None
         if top is None or not top.sampled:
             return _NOOP
+        clock = device_clock if str(device_clock).startswith("cuda") else None
         return Span(self, stack, name, top.trace_id, self._ids(),
-                    top.span_id, attrs)
+                    top.span_id, attrs, clock)
 
     def current_ctx(self) -> SpanCtx | None:
         """Ctx of the innermost span on this thread (None when untraced)."""
@@ -349,7 +414,9 @@ class Tracer:
 
     def spans(self) -> list[dict]:
         """Raw recorded spans (internal schema) — tests and the per-stage
-        benchmark aggregate over this."""
+        benchmark aggregate over this. A span that held CUDA events also
+        carries `dev_ms`."""
+        self._resolve()
         with self._lock:
             return list(self._events)
 
