@@ -515,6 +515,10 @@ HNSW_M, HNSW_EFC, P_MAIN = 16, 100, 4
 # within SCAN_TOL * (|q|^2 + |x|^2) (sums in another order; see
 # tests/test_torch_scan.py)
 N_SCAN, SCAN_K, SCAN_TOL = 1_000_000, 10, 1e-5
+# the exact services' request over the scan rows: the benchmark's 10,000
+# queries, 157 groups of 64 past the card's 132 CTAs, so 5 splits by the
+# waves (kernels/l2topk.py splits_for)
+EXACT_QUERIES, EXACT_SPLITS = 10_000, 5
 # the lm phase: deepseek-v2-lite-16b, B prompts of T tokens, a cache of S
 # positions, greedy decode steps; the router's k; (c)'s prompt length
 LM_ARCH, LM_B, LM_T, LM_S, LM_STEPS = "deepseek_v2_lite_16b", 8, 2048, 2080, 32
@@ -707,11 +711,16 @@ def main_data(n: int, n_queries: int):
     """The main paths' integer-valued 128-d vectors and queries (0..255)."""
     from repro_torch.data import VectorDataset
 
-    ds = VectorDataset(n, 128)
-    data = np.rint(ds.vectors()).astype(np.float32)
-    queries = np.rint(np.clip(ds.queries(n_queries), 0, 255)).astype(
-        np.float32)
-    return data, queries
+    data = np.rint(VectorDataset(n, 128).vectors()).astype(np.float32)
+    return data, main_queries(n, n_queries)
+
+
+def main_queries(n: int, n_queries: int):
+    """`main_data`'s queries alone."""
+    from repro_torch.data import VectorDataset
+
+    return np.rint(np.clip(VectorDataset(n, 128).queries(n_queries), 0,
+                           255)).astype(np.float32)
 
 
 def partitioned_spec(**kw):
@@ -3189,14 +3198,67 @@ def scan_timing(tabs, reps: int = 5) -> dict:
     return out
 
 
+def exact_route_check(tabs) -> None:
+    """The exact services (uint8 and int8) over the scan phase's 1M rows,
+    one request of EXACT_QUERIES queries each, the benchmark's request
+    shape: the split rule past the card's width (more query groups than
+    CTAs, so S by the waves), one l2topk_q_tc launch and no FMA launch a
+    request (the kernel route, `backends._scan_route`), ids and distances
+    bitwise those of bruteforce_topk over the same codes, rescaled as the
+    chunk loop rescales them."""
+    from repro_torch.api import IndexSpec, SearchRequest, SearchService
+    from repro_torch.core.bruteforce import bruteforce_topk
+    from repro_torch.kernels import l2topk, qdist
+
+    x = tabs["float32"][0].cpu().numpy()
+    q = main_queries(N_SCAN, EXACT_QUERIES)
+    for dt in ("uint8", "int8"):
+        svc = SearchService.build(x, IndexSpec(backend="exact", dtype=dt),
+                                  device=DEVICE)
+        be = svc.backend
+        check(torch.equal(be.vectors[:N_SCAN], tabs[dt][0]),
+              f"the exact {dt} service's codes differ from the scan tables'")
+        rows = be.vectors.shape[0]
+        splits = l2topk.splits_for(EXACT_QUERIES, rows, SCAN_K,
+                                   qdist._TC_CTAS)
+        groups = -(-EXACT_QUERIES // 64)
+        check(groups > qdist._TC_CTAS and splits == EXACT_SPLITS,
+              f"{EXACT_QUERIES} queries ({groups} groups) over {rows} rows: "
+              f"{splits} splits, expected the wave rule's {EXACT_SPLITS}")
+        svc.search(SearchRequest(q, k=SCAN_K)).ids.cpu()    # the build
+        before = scan_counts()
+        t0 = time.perf_counter()
+        resp = svc.search(SearchRequest(q, k=SCAN_K))
+        ids, dists = resp.ids.cpu(), resp.dists.cpu()
+        ms = (time.perf_counter() - t0) * 1e3
+        moved = {k: v - before[k] for k, v in scan_counts().items()
+                 if v != before[k]}
+        check(moved == {"l2topk_q": 1}, f"the exact {dt} service launched "
+                                        f"{moved}, expected one l2topk_q_tc")
+        codes = torch.from_numpy(svc.quantizer.encode_f32(q)).to(DEVICE)
+        want_i, want_d = bruteforce_topk(be.vectors, be.sqnorms, codes,
+                                         k=SCAN_K, chunk=be.CHUNK)
+        scale = float(np.float32(svc.quantizer.dist_scale))
+        check(torch.equal(ids, want_i.cpu())
+              and torch.equal(dists, (want_d * scale).cpu()),
+              f"the exact {dt} service != bruteforce_topk on its codes")
+        log(f"[scan] exact {dt} service, {EXACT_QUERIES} queries over "
+            f"{N_SCAN} rows: one l2topk_q_tc launch of {groups} x {splits} "
+            f"CTAs, ids and dists bitwise equal to bruteforce_topk; "
+            f"{ms:.3f} ms on the host clock")
+        del svc, be, want_i, want_d
+    torch.cuda.empty_cache()
+
+
 def exact_spans(tabs) -> dict:
     """The exact uint8 service over the scan phase's rows, one request of
     BATCH queries after an untraced one, the port's TRACER on: `search`
-    with the children `encode`, `upload` and `scan`; scan's work counts
-    equal to the backend's (rows padded by less than a chunk), encode's
-    queries, upload's bytes; scan's CUDA event pair resolved (`dev_ms`);
-    and, a third request under torch.profiler, the four spans as host
-    ranges. Returns each span's host ms and scan's device ms."""
+    with the children `encode`, `upload` and `scan`; scan's attrs equal to
+    the backend's (the kernel route, rows padded by less than a chunk),
+    encode's queries, upload's bytes (float32 codes, cast on the device);
+    scan's CUDA event pair resolved (`dev_ms`); and, a third
+    request under torch.profiler, the four spans as host ranges. Returns
+    each span's host ms and scan's device ms."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.api import IndexSpec, SearchRequest, SearchService
@@ -3229,11 +3291,12 @@ def exact_spans(tabs) -> dict:
     by = {ev["name"]: ev for ev in spans}
     be = svc.backend
     rows = be.vectors.shape[0]
-    check(by["scan"]["attrs"] == {"rows": rows, "chunks": rows // be.CHUNK,
+    check(by["scan"]["attrs"] == {"route": "l2topk_q", "rows": rows,
                                   "queries": BATCH, "k": SCAN_K}
           and rows % be.CHUNK == 0 and 0 <= rows - N_SCAN < be.CHUNK,
-          f"scan's counts {by['scan']['attrs']}: expected {N_SCAN} rows "
-          f"padded to chunks of {be.CHUNK}, {BATCH} queries, k {SCAN_K}")
+          f"scan's attrs {by['scan']['attrs']}: expected the l2topk_q "
+          f"route, {N_SCAN} rows padded to a multiple of {be.CHUNK}, "
+          f"{BATCH} queries, k {SCAN_K}")
     check(by["encode"]["attrs"] == {"queries": BATCH}
           and by["upload"]["attrs"] == {"bytes": BATCH * x.shape[1] * 4},
           f"encode's / upload's counts {by['encode']['attrs']} / "
@@ -3245,7 +3308,7 @@ def exact_spans(tabs) -> dict:
     out = {n: (ev["t1"] - ev["t0"]) * 1e3 for n, ev in by.items()}
     out["scan_dev"] = by["scan"]["dev_ms"]
     log(f"[scan] exact uint8 service, {BATCH} queries over {N_SCAN} rows "
-        f"({rows // be.CHUNK} chunks), by TRACER span, host ms: search "
+        f"(one l2topk_q_tc launch), by TRACER span, host ms: search "
         f"{out['search']:.3f} = encode {out['encode']:.3f} + upload "
         f"{out['upload']:.3f} + scan {out['scan']:.3f} (device "
         f"{out['scan_dev']:.3f}) + the rest "
@@ -3302,6 +3365,7 @@ def scan_phase(seed: int) -> dict:
     torch.cuda.empty_cache()
     err = scan_kernel_checks(tabs, g)
     timing = scan_timing(tabs)
+    exact_route_check(tabs)
     exact_spans(tabs)
     return {name: {"launches": launches[name], "err": err[name],
                    "timing": timing[name]} for name in launches}

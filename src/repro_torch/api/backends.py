@@ -40,7 +40,8 @@ from repro_torch.core.partitioned import (
     search_partitioned_candidates,
 )
 from repro_torch.core.search import SearchParams
-from repro_torch.kernels.ops import pq_topk
+from repro_torch.kernels.ops import l2topk_q, pq_topk
+from repro_torch.kernels.qdist import MAX_K
 from repro_torch.obs.trace import TRACER
 from repro_torch.optim.compression import build_pq_lut
 
@@ -88,18 +89,50 @@ def _device_vectors(vectors: np.ndarray, device):
 # ---------------------------------------------------------------------------
 
 
+# the largest code magnitude of each 8-bit row dtype
+_CODE_MAX = {torch.uint8: 255, torch.int8: 128}
+
+
+def _scan_route(dtype, metric: str, k: int, d: int, device) -> str:
+    """The exact backend's scan for rows of `dtype` and width `d` on
+    `device`: "l2topk_q" for l2 over 8-bit code rows on a CUDA device with
+    1 <= k <= MAX_K and D small enough that every distance is an exact
+    float32 integer (2 * D * the largest code^2 below 2^24: D <= 129 for
+    uint8), so that the fused kernel answers as the chunk loop does; else
+    "chunks". `ops.l2topk_q` picks its kernel by shape (the tensor cores
+    where `qdist.takes_tensor_cores` holds, FP32 FMAs else). Reads dtypes,
+    shapes, the metric and the device, never a value."""
+    top = _CODE_MAX.get(dtype)
+    if (torch.device(device).type == "cuda" and top is not None
+            and metric == "l2" and 0 < k <= MAX_K
+            and 2 * d * top * top < 2 ** 24):
+        return "l2topk_q"
+    return "chunks"
+
+
 @register_backend("exact")
 class ExactBackend:
-    """Chunked exact scan; the ground-truth engine and the Fig. 9 baseline.
+    """Exact scan; the ground-truth engine and the Fig. 9 baseline.
 
-    uint8/int8: `raw` is the code table, scanned as is (exact: integer
-    dot products below 2^24), and distances are rescaled by scale**2.
-    pq: `raw` is the float32 rows (build) or the [n, M] code table
-    (checkpoint); the scan is the fused ADC top-k over the codes.
+    uint8/int8: `raw` is the code table, scanned as is, and the queries
+    are codes, as code-valued float32 (`SearchService.search` encodes
+    them); distances are rescaled by scale**2. pq: `raw` is the
+    float32 rows (build) or the [n, M] code table (checkpoint); the scan
+    is the fused ADC top-k over the codes.
+
+    The scan takes one of two routes (`_scan_route`). On a CUDA device,
+    an l2 search of 1 <= k <= MAX_K over 8-bit code rows is one fused
+    `ops.l2topk_q` launch and its split merge (csrc/l2topk_q_tc.cu at the
+    tensor cores' shapes), the uploaded queries cast to codes of the rows'
+    dtype on the device. Everything else, and every search on the CPU, is
+    the chunk loop `bruteforce_topk`. Both answer bit for bit alike: every
+    distance there is an exact float32 integer, and among equal distances
+    the lowest id wins.
 
     A search records the spans `upload` (the queries becoming a device
-    tensor; `bytes`) and, but for pq, `scan` (the chunked scan, on the
-    device's clock too; `rows` padded, `chunks`, `queries`, `k`)."""
+    tensor; `bytes`) and, but for pq, `scan` (on the device's clock too;
+    `route`, `rows` padded, `queries`, `k`, and `chunks` where the chunk
+    loop ran)."""
 
     uses_graph = False
     CHUNK = 512
@@ -140,6 +173,9 @@ class ExactBackend:
 
     def search(self, queries, k: int, ef: int, rerank: bool,
                with_stats: bool):
+        route = None if self.is_pq else _scan_route(
+            self.vectors.dtype, self.spec.metric, k, self.vectors.shape[1],
+            self.device)
         with TRACER.child_span("upload") as span:
             q = torch.as_tensor(queries, dtype=torch.float32,
                                 device=self.device)
@@ -149,14 +185,23 @@ class ExactBackend:
                                  k=k)
         else:
             rows = self.vectors.shape[0]
+            scale = (1.0 if self.quant is None
+                     else float(np.float32(self.quant.dist_scale)))
+            loop = {"chunks": rows // self.CHUNK} if route == "chunks" else {}
             with TRACER.child_span("scan", device_clock=self.device,
-                                   rows=rows, chunks=rows // self.CHUNK,
+                                   route=route, rows=rows, **loop,
                                    queries=q.shape[0], k=k):
-                ids, dists = bruteforce_topk(self.vectors, self.sqnorms, q,
-                                             k=k, chunk=self.CHUNK,
-                                             metric=self.spec.metric)
-            if self.quant is not None:    # code space -> real space
-                dists = dists * float(np.float32(self.quant.dist_scale))
+                if route == "chunks":
+                    ids, dists = bruteforce_topk(self.vectors, self.sqnorms,
+                                                 q, k=k, chunk=self.CHUNK,
+                                                 metric=self.spec.metric)
+                else:   # codes, so the cast is exact; the kernel's
+                    # merge rescales its k winners
+                    dists, ids = l2topk_q(q.to(self.vectors.dtype),
+                                          self.vectors, self.sqnorms, k=k,
+                                          out_scale=scale)
+            if route == "chunks" and self.quant is not None:
+                dists = dists * scale     # code space -> real space
         stats = None
         if with_stats:
             stats = QueryStats(dist_calcs=torch.full(

@@ -6,6 +6,10 @@ with `merge_sorted` (ties keep the running list), so among equal
 distances the lowest id wins, as in the reference. The reference computes
 this in plain jnp outside any Pallas kernel; the product here is a plain
 `torch.matmul` in float32 (TF32 must stay off for exact distances).
+
+This is the exact backend's CPU path and plain version; on a card its l2
+scan over 8-bit code rows is one fused kernel launch instead
+(`api/backends.py` `_scan_route`), which answers bit for bit alike.
 """
 
 from __future__ import annotations

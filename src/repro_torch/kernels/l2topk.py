@@ -74,6 +74,12 @@ _CTAS = 2 * 132
 # outgrows a split's gain above this (at 256 x 1M, k=64: 6.6 ms with 32
 # splits, 18.3 ms with 128; PERF.md §6)
 MERGE_CANDIDATES = 2048
+# where the query groups alone fill the card, more splits are worth it
+# only if they save more than this share of the waves: each split's CTAs
+# pay their lists' warm-up again (l2topk_q_tc at 10,000 x 1M, k = 10:
+# 5 splits 10.37 ms, 10 11.53, 21 13.85, 95 28.68, though all run
+# within 1 % of the same wave time; H100 80GB HBM3, PERF.md §6)
+_WAVE_SLACK = 0.02
 # rows a plain version takes at once: a [Bq, 65536] float32 tile
 _CHUNK = 1 << 16
 _INF = float("inf")
@@ -148,12 +154,24 @@ _TC_SIGNATURES = {
 
 
 def splits_for(bq: int, bx: int, k: int, ctas: int) -> int:
-    """Row splits of a fused scan: enough CTAs of 64 queries to fill the
-    card (`ctas`), at most one a 64-row tile, at most MAX_SPLITS, and at
-    most MERGE_CANDIDATES candidates a query for the merge."""
+    """Row splits of a fused scan, at most one a 64-row tile, at most
+    MAX_SPLITS, and at most MERGE_CANDIDATES candidates a query for the
+    merge. Fewer groups of 64 queries than `ctas` (the CTAs that fill the
+    card at once): enough splits to fill it. More: the grid runs in waves
+    of `ctas`, so S splits take ceil(groups * S / ctas) waves of CTAs 1/S
+    as long; the fewest splits within `_WAVE_SLACK` of the best such time,
+    so that the last wave is nearly full (at 157 groups and 132 CTAs, 5
+    splits: 5.95 waves of a fifth, where 1 split runs 2 waves, the second
+    with 25 CTAs)."""
     groups = max(-(-bq // _QBLOCK), 1)
-    return max(1, min(MAX_SPLITS, -(-ctas // groups), -(-bx // _TILE),
-                      MERGE_CANDIDATES // k))
+    cap = max(1, min(MAX_SPLITS, -(-bx // _TILE), MERGE_CANDIDATES // k))
+    if groups <= ctas:
+        return min(cap, -(-ctas // groups))
+    # time of S splits in CTA lengths of one split: waves(S) / S
+    waves = [-(-groups * s // ctas) for s in range(1, cap + 1)]
+    best = min(w / s for s, w in enumerate(waves, 1))
+    return next(s for s, w in enumerate(waves, 1)
+                if w / s <= best * (1 + _WAVE_SLACK))
 
 
 def launch_fused_topk(queries, xs, xsq, *, k: int, out_scale: float | None,

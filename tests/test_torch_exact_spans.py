@@ -2,9 +2,9 @@
 
 `SearchService.search` over the `exact` backend records `search` with the
 children `encode` (the query preparation, where there is any), `upload`
-(the queries becoming a device tensor) and `scan` (the chunked scan, with
-its work counts). A span given a CUDA `device_clock` is bracketed by two
-CUDA events, resolved only when the spans are read (`dev_ms`); here a
+(the queries becoming a device tensor) and `scan` (the route that ran,
+with its work counts). A span given a CUDA `device_clock` is bracketed by
+two CUDA events, resolved only when the spans are read (`dev_ms`); here a
 stand-in for `torch.cuda` checks that bookkeeping without a card. Under
 torch.profiler every sampled span is also a `record_function` range. A
 span without device events exports exactly as the reference's tracer
@@ -70,7 +70,10 @@ def test_exact_search_records_encode_upload_scan(services, data, tracing):
     be = svc.backend
     rows = be.vectors.shape[0]
     assert rows == 1024 and rows % be.CHUNK == 0
-    assert by["scan"]["attrs"] == {"rows": rows, "chunks": rows // be.CHUNK,
+    # the CPU runs the chunk loop (the card's kernel route:
+    # tests/test_torch_exact_route.py)
+    assert by["scan"]["attrs"] == {"route": "chunks", "rows": rows,
+                                   "chunks": rows // be.CHUNK,
                                    "queries": len(data[1]), "k": K}
     assert by["encode"]["attrs"] == {"queries": len(data[1])}
     assert by["upload"]["attrs"] == {"bytes": data[1].size * 4}
