@@ -247,6 +247,22 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                device ms, and under torch.profiler the spans are host
                ranges; prints each span's host ms and the scan's device
                ms.
+  7b. graph_build — the batched graph build (`core/batch_build.py`) on the
+               benchmark's uint8 rows (`bench/generator.py`), M=16,
+               ef_construction=100, P=4: the card build of 4 x 8,192 rows
+               equal byte for byte, every table, to the CPU build of the
+               same rows (a worker process, beside the rest); at 4 x
+               16,384 rows, 10,000 queries, ef 40, the card-built graph's
+               recall@10 within 0.005 of build_hnsw's (four worker
+               processes, one a partition), both searched on the card and
+               held to `bench/reference/exact.py`; the graph cell's
+               configuration, 1M rows through SearchService.build
+               (`partitioned-batched`, uint8), in <= 60 s, its recall at
+               the cell's request; and its spans (`graph_spans`): build >
+               one insert a batch (rows summing to the index's, each with
+               dev_ms), search > encode, descend, layer0, merge with their
+               attrs against the backend, layer0's dev_ms, and the spans as
+               torch.profiler ranges.
   8. lm      — the LM substrate, last, after torch.cuda.empty_cache():
                deepseek-v2-lite-16b at full width and depth (27 layers, d
                2048, 16 MLA heads, 64 experts top-6, vocab 102,400; 15.7 B
@@ -519,6 +535,15 @@ N_SCAN, SCAN_K, SCAN_TOL = 1_000_000, 10, 1e-5
 # queries, 157 groups of 64 past the card's 132 CTAs, so 5 splits by the
 # waves (kernels/l2topk.py splits_for)
 EXACT_QUERIES, EXACT_SPLITS = 10_000, 5
+# the graph phase: the card build held byte for byte to the CPU build at
+# GRAPH_SAME rows a partition, its recall at ef GRAPH_EF to build_hnsw's
+# graph's at GRAPH_RECALL rows a partition (within GRAPH_RECALL_TOL), and
+# the graph cell's configuration at GRAPH_ROWS rows, GRAPH_QUERIES queries
+GRAPH_SAME, GRAPH_RECALL, GRAPH_RECALL_TOL = 8192, 16384, 0.005
+GRAPH_ROWS, GRAPH_QUERIES, GRAPH_EF = 1_000_000, 10_000, 40
+# the graph cell's configuration and limits, as bench/run.py reads them
+GRAPH_CONFIG = ROOT / "bench" / "configs" / "bigann-u8-hnsw-p4.json"
+GRAPH_LIMITS = ROOT / "bench" / "workloads" / "hnsw-u8-q10k.json"
 # the lm phase: deepseek-v2-lite-16b, B prompts of T tokens, a cache of S
 # positions, greedy decode steps; the router's k; (c)'s prompt length
 LM_ARCH, LM_B, LM_T, LM_S, LM_STEPS = "deepseek_v2_lite_16b", 8, 2048, 2080, 32
@@ -1293,7 +1318,8 @@ def timing_phase(svc, queries, what: str, reps: int = 5) -> dict:
         ep, ep_d, _ = cs._greedy_upper(db, part, dist, p)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        cs._search_layer0(db, q, qsq, ep, ep_d, p)
+        cs.search_layer0(db.vectors, db.sqnorms, db.l0_nbrs, q, qsq, ep,
+                         ep_d, p)
         torch.cuda.synchronize()
         split = {"upper_ms": (t1 - t0) * 1e3,
                  "layer0_ms": (time.perf_counter() - t1) * 1e3}
@@ -1307,7 +1333,8 @@ def timing_phase(svc, queries, what: str, reps: int = 5) -> dict:
 
     cs.fused_layer0 = recorder
     try:
-        cs._search_layer0(db, q, qsq, ep, ep_d, p)
+        cs.search_layer0(db.vectors, db.sqnorms, db.l0_nbrs, q, qsq, ep,
+                         ep_d, p)
     finally:
         cs.fused_layer0 = orig
     H = max(p.fused_hops, 1)
@@ -3369,6 +3396,319 @@ def scan_phase(seed: int) -> dict:
     exact_spans(tabs)
     return {name: {"launches": launches[name], "err": err[name],
                    "timing": timing[name]} for name in launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the batched graph build (core/batch_build.py) and the graph cell
+# ---------------------------------------------------------------------------
+
+
+def graph_cfgs(p: int) -> list:
+    """The partitions' HNSWConfigs of a P-partition build at the phase's
+    M and ef_construction, as `build_partitioned_db` seeds them."""
+    from repro_torch.core.hnsw_graph import HNSWConfig
+
+    return [HNSWConfig(M=HNSW_M, ef_construction=HNSW_EFC, seed=i)
+            for i in range(p)]
+
+
+def graph_parts(n: int, p: int, seed: int) -> list:
+    """The benchmark's uint8 rows of `seed` (bench/generator.py), n a
+    partition, split as `build_partitioned_db` splits them."""
+    from bench import generator
+
+    x = generator.base_rows(n * p, seed)
+    return [x[i * n:(i + 1) * n] for i in range(p)]
+
+
+def cpu_graph_worker(n: int, seed: int, threads: int) -> list:
+    """Worker process: the batched build of P_MAIN x n rows on the CPU
+    (the plain traversal)."""
+    from repro_torch.core.batch_build import build_graphs
+
+    torch.set_num_threads(threads)
+    return build_graphs(graph_parts(n, P_MAIN, seed), graph_cfgs(P_MAIN),
+                        "cpu")
+
+
+def host_graph_worker(n: int, seed: int, p: int):
+    """Worker process: build_hnsw's graph of partition p of P_MAIN x n
+    rows (numpy, one point at a time)."""
+    from repro_torch.core.hnsw_graph import build_hnsw
+
+    return build_hnsw(graph_parts(n, P_MAIN, seed)[p], graph_cfgs(P_MAIN)[p])
+
+
+def graph_db(graphs, parts, device):
+    """The stacked uint8 DeviceDB of `graphs` on `device`, as
+    `PartitionedBackend.build` makes it."""
+    from repro_torch.core import hnsw_graph as hg
+    from repro_torch.core.partitioned import (build_partitioned_db,
+                                              quantize_db_vectors)
+
+    pdb = build_partitioned_db(np.concatenate(parts), len(parts),
+                               graph_cfgs(1)[0], lambda *_: graphs)
+    pdb = quantize_db_vectors(pdb, "uint8")
+    return pdb._replace(db=hg.device_db(pdb.db, device))
+
+
+def graph_recall(base, queries, ids) -> float:
+    """recall@10 of `ids` against bench/reference/exact.py: a returned id
+    counts when its exact distance is at most the exact 10th (ties)."""
+    from bench.reference import exact
+
+    _, gt_d = exact.exact_topk(base, queries, SCAN_K, DEVICE)
+    d = exact.exact_dists(base, queries, ids, DEVICE)
+    return float((d <= gt_d[:, SCAN_K - 1:]).sum() / ids.size)
+
+
+def graph_spans(svc, built, queries) -> dict:
+    """The spans of the 1M-row build (`built`: the tracer's spans of it)
+    and of one traced request of the cell's shape: `build` > one `insert`
+    a batch (`batch_schedule`), its rows summing to the index's, each on
+    the device's clock; `search` > `encode`, `descend`, `layer0`, `merge`
+    with their attrs against the backend (lanes P x B, hops <= syncs,
+    supersteps >= 1, P x k candidates), layer0's device clock resolved;
+    and under torch.profiler the search spans as host ranges. Returns host
+    and device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import SearchRequest
+    from repro_torch.core.batch_build import batch_schedule
+    from repro_torch.obs import TRACER
+
+    n = sum(int(v) for v in np.atleast_1d(svc.backend.pdb.db.n_valid.cpu()))
+    p = svc.backend.pdb.num_partitions
+    names = {ev["id"]: ev["name"] for ev in built}
+    tree = {(ev["name"], names.get(ev["parent"])) for ev in built}
+    ins = [ev for ev in built if ev["name"] == "insert"]
+    (root,) = [ev for ev in built if ev["name"] == "build"]
+    check(tree == {("build", None), ("insert", "build")}
+          and root["attrs"] == {"backend": "partitioned-batched", "rows": n,
+                                "partitions": p}
+          and len(ins) == len(batch_schedule(-(-n // p)))
+          and sum(ev["attrs"]["rows"] for ev in ins) == n
+          and all(ev.get("dev_ms", 0.0) > 0.0 for ev in ins),
+          f"the build's spans {sorted(tree)} ({len(ins)} inserts, root "
+          f"{root['attrs']}): expected build > one insert a batch of "
+          f"batch_schedule, rows summing to {n}, each with dev_ms")
+    req = SearchRequest(queries, k=SCAN_K, ef=GRAPH_EF)
+    svc.search(req).ids.cpu()
+    TRACER.configure(enabled=True, sample_rate=1.0)
+    TRACER.clear()
+    try:
+        svc.search(req).ids.cpu()
+        spans = TRACER.spans()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            svc.search(req).ids.cpu()
+        ranges = {e.name for e in prof.events()}
+    finally:
+        TRACER.configure(enabled=False)
+        TRACER.clear()
+    names = {ev["id"]: ev["name"] for ev in spans}
+    tree = {ev["name"]: names.get(ev["parent"]) for ev in spans}
+    check(len(spans) == 5 and tree == {
+        "search": None, "encode": "search", "descend": "search",
+        "layer0": "search", "merge": "search"},
+          f"the graph search's spans {tree}: expected search > encode, "
+          f"descend, layer0, merge")
+    by = {ev["name"]: ev["attrs"] for ev in spans}
+    lanes = p * len(queries)
+    check(by["descend"]["lanes"] == lanes == by["layer0"]["lanes"]
+          and 0 < by["descend"]["hops"] <= by["descend"]["syncs"]
+          and by["layer0"]["supersteps"] >= 1
+          and by["merge"] == {"candidates": p * SCAN_K},
+          f"the graph spans' attrs {by}: expected {lanes} lanes, hops <= "
+          f"syncs, supersteps >= 1, {p * SCAN_K} candidates")
+    layer0 = next(ev for ev in spans if ev["name"] == "layer0")
+    check(layer0.get("dev_ms", 0.0) > 0.0,
+          f"layer0's device clock unresolved: {layer0}")
+    check(set(tree) <= ranges, f"the graph spans are not profiler ranges: "
+          f"{sorted(set(tree) - ranges)} missing")
+    out = {ev["name"]: (ev["t1"] - ev["t0"]) * 1e3 for ev in spans}
+    out["layer0_dev"] = layer0["dev_ms"]
+    out["insert_dev"] = sum(ev["dev_ms"] for ev in ins)
+    out["inserts"] = len(ins)
+    out["build"] = (root["t1"] - root["t0"]) * 1e3
+    log(f"[graph] spans, host ms: search {out['search']:.3f} = encode "
+        f"{out['encode']:.3f} + descend {out['descend']:.3f} "
+        f"({by['descend']['hops']} hops, {by['descend']['syncs']} syncs) + "
+        f"layer0 {out['layer0']:.3f} ({by['layer0']['supersteps']} "
+        f"supersteps, device {out['layer0_dev']:.3f}) + merge "
+        f"{out['merge']:.3f}; build {out['build']:.1f} = {len(ins)} inserts "
+        f"(device {out['insert_dev']:.1f}) + the rest; the spans are "
+        f"profiler ranges")
+    return out
+
+
+def graph_replay(svc, queries) -> dict:
+    """One request of the cell's shape through the 1M-row service, its
+    traversal checked superstep by superstep as the path runs it: the
+    route at these shapes is traversal_async.cu's global-bitmap one, and
+    from each launch's input state both fused_traversal_cuda and the plain
+    fused_traversal_ref give the path's own output, every state tensor
+    bitwise. The states are compared as they come, not kept: each holds a
+    1.25 GB bitmap. Returns the supersteps and the lanes' hops."""
+    from repro_torch.api import SearchRequest
+    from repro_torch.core import search as cs
+    from repro_torch.kernels import traversal as tr
+
+    db = svc.backend.pdb.db
+    P, n_pad, d_pad = db.vectors.shape
+    p = svc.backend.params(SCAN_K, GRAPH_EF).resolve(db.l0_nbrs.shape[-1])
+    lanes = P * len(queries)
+    route = tr.traversal_route(db.vectors.dtype, d_pad, db.l0_nbrs.shape[-1],
+                               p.cand_size, p.ef, n_pad)
+    check(route == ("async", "global"),
+          f"the graph cell's route gives {route} at N_pad {n_pad}, "
+          f"{lanes} lanes: expected ('async', 'global')")
+    names = ("cand_d", "cand_i", "fin_d", "fin_i", "visited", "hops",
+             "calcs")
+    orig = cs.fused_layer0
+    seen = {"steps": 0, "lanes": 0}
+
+    def checked(*args, **kw):
+        tables, state = args[:5], args[5:]
+        a = [t.clone() for t in state]
+        r = [t.clone() for t in state]
+        out = orig(*args, **kw)
+        tr.fused_traversal_cuda(*tables, *a, **kw)
+        tr.fused_traversal_ref(*tables, *r, **kw)
+        seen["steps"] += 1
+        seen["lanes"] = max(seen["lanes"], state[0].shape[0])
+        bad = [n for n, x, y, z in zip(names, state, a, r)
+               if not (torch.equal(x, z) and torch.equal(y, z))]
+        check(not bad, f"superstep {seen['steps']} at the graph cell's "
+              f"shapes ({state[0].shape[0]} lanes, N_pad {n_pad}, global "
+              f"bitmap): the path, fused_traversal_cuda and "
+              f"fused_traversal_ref differ in {bad}")
+        return out
+
+    cs.fused_layer0 = checked
+    try:
+        svc.search(SearchRequest(queries, k=SCAN_K, ef=GRAPH_EF)).ids.cpu()
+    finally:
+        cs.fused_layer0 = orig
+    check(seen["lanes"] == lanes and seen["steps"] >= 1,
+          f"the replay saw {seen}: expected {lanes} lanes")
+    log(f"[graph] the cell's request ({lanes} lanes, N_pad {n_pad}, C "
+        f"{p.cand_size}, EF {p.ef}, H {max(p.fused_hops, 1)}): route "
+        f"{route}; {seen['steps']} supersteps, each bitwise equal across "
+        f"the path, fused_traversal_cuda and fused_traversal_ref")
+    return {"steps": seen["steps"]}
+
+
+def graph_phase(seed: int) -> dict:
+    """The batched build on the card: byte for byte the CPU build's at
+    P_MAIN x GRAPH_SAME rows; recall at ef 40 within GRAPH_RECALL_TOL of
+    build_hnsw's graph at P_MAIN x GRAPH_RECALL rows (10,000 queries); the
+    benchmark cell's configuration (GRAPH_CONFIG: 1M rows,
+    `partitioned-batched`, uint8, P_MAIN partitions) through
+    SearchService.build, timed; its recall at the cell's request against
+    bench/reference/exact.py, held to the cell's 1 - miss_share; the
+    request's traversal replayed at its shapes (`graph_replay`); its
+    spans."""
+    from bench import generator
+
+    from repro_torch.api import IndexSpec, SearchRequest, SearchService
+    from repro_torch.core.batch_build import build_graphs
+    from repro_torch.core.hnsw_graph import DeviceDB
+    from repro_torch.core.partitioned import search_partitioned
+    from repro_torch.core.search import SearchParams
+    from repro_torch.kernels import traversal as tv
+    from repro_torch.obs import TRACER
+
+    t_phase = time.perf_counter()
+    out = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1 + P_MAIN,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = pool.submit(cpu_graph_worker, GRAPH_SAME, seed, 4)
+        hosts = [pool.submit(host_graph_worker, GRAPH_RECALL, seed, p)
+                 for p in range(P_MAIN)]
+        # the card build the CPU's must equal
+        parts = graph_parts(GRAPH_SAME, P_MAIN, seed)
+        a0 = tv.ASYNC_LAUNCHES
+        t0 = time.perf_counter()
+        card = build_graphs(parts, graph_cfgs(P_MAIN), DEVICE)
+        out["same_card_s"] = time.perf_counter() - t0
+        card_db = graph_db(card, parts, "cpu")
+        # the cell's configuration, through the service
+        base = generator.base_rows(GRAPH_ROWS, seed)
+        queries = generator.query_pool(GRAPH_ROWS, 1, GRAPH_QUERIES, seed)[0]
+        spec = IndexSpec.from_json(json.loads(GRAPH_CONFIG.read_text())[
+            "spec"])
+        miss = json.loads(GRAPH_LIMITS.read_text())["checks"]["miss_share"]
+        TRACER.configure(enabled=True, sample_rate=1.0)
+        TRACER.clear()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            svc = SearchService.build(base, spec, device=DEVICE)
+            torch.cuda.synchronize()
+            out["build_1m_s"] = time.perf_counter() - t0
+            built = TRACER.spans()
+        finally:
+            TRACER.configure(enabled=False)
+            TRACER.clear()
+        out["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+        ids = svc.search(SearchRequest(queries, k=SCAN_K, ef=GRAPH_EF)
+                         ).ids.cpu().numpy()
+        out["recall_1m"] = graph_recall(base, queries, ids)
+        log(f"[graph] {GRAPH_ROWS} uint8 rows, P={P_MAIN}, M={HNSW_M}, "
+            f"ef_construction={HNSW_EFC}: SearchService.build "
+            f"(partitioned-batched) {out['build_1m_s']:.2f}s, peak "
+            f"{out['build_peak_bytes']} bytes; recall@10 at ef {GRAPH_EF} "
+            f"on the cell's request of {GRAPH_QUERIES} queries "
+            f"{out['recall_1m']:.5f} (the cell's floor {1 - miss:.3f})")
+        check(out["build_1m_s"] <= 60.0,
+              f"the 1M-row build took {out['build_1m_s']:.1f}s (> 60 s)")
+        check(out["recall_1m"] >= 1 - miss,
+              f"the 1M-row graph's recall@10 {out['recall_1m']:.5f} is below "
+              f"the cell's floor 1 - miss_share = {1 - miss:.3f}")
+        out["replay"] = graph_replay(svc, queries)
+        out["spans"] = graph_spans(svc, built, queries)
+        del svc
+        torch.cuda.empty_cache()
+        # the batched graph's recall against build_hnsw's, on the card
+        big = graph_parts(GRAPH_RECALL, P_MAIN, seed)
+        rows = np.concatenate(big)
+        q = generator.query_pool(len(rows), 1, GRAPH_QUERIES, seed)[0]
+        t0 = time.perf_counter()
+        batched = build_graphs(big, graph_cfgs(P_MAIN), DEVICE)
+        out["recall_card_s"] = time.perf_counter() - t0
+        params = SearchParams(ef=GRAPH_EF, k=SCAN_K)
+        qt = torch.as_tensor(q, dtype=torch.float32, device=DEVICE)
+        got = search_partitioned(graph_db(batched, big, DEVICE), qt, params)
+        out["recall_batched"] = graph_recall(rows, q, got[0].cpu().numpy())
+        out["launches"] = tv.ASYNC_LAUNCHES - a0
+        check(tv.LAUNCHES == 0, f"the graph phase launched traversal.cu "
+              f"{tv.LAUNCHES} times")
+        t0 = time.perf_counter()
+        host = [f.result() for f in hosts]
+        cpu_graphs = cpu.result()
+        log(f"[graph] waited {time.perf_counter() - t0:.1f}s for the CPU "
+            f"build and the host builds")
+    want = search_partitioned(graph_db(host, big, DEVICE), qt, params)
+    out["recall_host"] = graph_recall(rows, q, want[0].cpu().numpy())
+    cpu_db = graph_db(cpu_graphs, parts, "cpu")
+    same = [f for f in DeviceDB._fields
+            if not torch.equal(getattr(card_db.db, f), getattr(cpu_db.db, f))]
+    check(not same, f"the card build of {P_MAIN} x {GRAPH_SAME} rows differs "
+          f"from the CPU build in {same}")
+    log(f"[graph] the card build of {P_MAIN} x {GRAPH_SAME} uint8 rows "
+        f"({out['same_card_s']:.2f}s) equals the CPU build byte for byte "
+        f"(every table); at {P_MAIN} x {GRAPH_RECALL} rows, {GRAPH_QUERIES} "
+        f"queries, ef {GRAPH_EF}: recall@10 batched "
+        f"{out['recall_batched']:.5f} (card build "
+        f"{out['recall_card_s']:.2f}s), build_hnsw {out['recall_host']:.5f}; "
+        f"traversal_async.cu launches {out['launches']}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    check(out["recall_batched"] >= out["recall_host"] - GRAPH_RECALL_TOL,
+          f"the batched graph's recall {out['recall_batched']:.5f} is below "
+          f"build_hnsw's {out['recall_host']:.5f} - {GRAPH_RECALL_TOL}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5511,9 +5851,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernel,main,quant,csd,cost,serve,ingest,"
-                            "cluster,scan,lm,dense,ssm,train,tools",
+                            "cluster,scan,graph_build,lm,dense,ssm,train,"
+                            "tools",
                     help="comma list of kernel,main,quant,csd,cost,serve,"
-                         "ingest,cluster,scan,lm,dense,ssm,train,tools "
+                         "ingest,cluster,scan,graph_build,lm,dense,ssm,"
+                         "train,tools "
                          "(card and build always run; serve and cost need "
                          "csd, csd needs quant, quant, ingest and cluster "
                          "need main)")
@@ -5653,6 +5995,10 @@ def run_phases(phases: set, stack: contextlib.ExitStack, t_all: float
     if "scan" in phases:
         torch.cuda.empty_cache()
         scan = scan_phase(seed=1)
+    # 7b. graph_build
+    if "graph_build" in phases:
+        torch.cuda.empty_cache()
+        graph_phase(seed=5)
     # 8. lm
     lm = None
     if "lm" in phases:

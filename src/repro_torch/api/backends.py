@@ -9,6 +9,8 @@ loads an index the other saved:
   hnsw        : one monolithic graph (partitioned with P=1)
   partitioned : the paper's two-stage engine — P sub-graphs, stage-2 merge,
                 optional exact rerank
+  partitioned-batched : partitioned with its graphs built on the device,
+                a batch of points at a time (the port's alone)
   distributed : partitions sharded over a mesh's `model` slots, queries
                 over its `data` slots, with a gather-and-merge stage 2
                 (paper Fig. 10/11; `core/distributed.py`)
@@ -25,11 +27,14 @@ as `mesh=` (None: every card, or one CPU slot); the others ignore it.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from repro_torch.api.rerank import batched_rerank
 from repro_torch.api.types import IndexSpec, QueryStats
+from repro_torch.core import batch_build
 from repro_torch.core import hnsw_graph as hg
 from repro_torch.core.bruteforce import bruteforce_topk
 from repro_torch.core.partitioned import (
@@ -47,7 +52,7 @@ from repro_torch.optim.compression import build_pq_lut
 
 __all__ = ["register_backend", "get_backend", "available_backends",
            "CSDBackend", "DistributedBackend", "ExactBackend",
-           "HNSWBackend", "PartitionedBackend"]
+           "HNSWBackend", "PartitionedBackend", "PartitionedBatchedBackend"]
 
 _BACKENDS: dict[str, type] = {}
 # in the reference, not yet in the port
@@ -265,12 +270,14 @@ class PartitionedBackend:
         self.pdb = pdb._replace(db=hg.device_db(pdb.db, self.device))
 
     @classmethod
-    def build(cls, vectors: np.ndarray, spec: IndexSpec, device, mesh=None):
+    def build(cls, vectors: np.ndarray, spec: IndexSpec, device, mesh=None,
+              build_graphs=None):
         """`vectors` are codes for uint8/int8 (the service encodes them)
         and the original float32 rows for pq: the graphs are built at
-        full precision and the code rows swapped in afterwards."""
+        full precision and the code rows swapped in afterwards.
+        `build_graphs`: `build_partitioned_db`'s (None: `build_hnsw`)."""
         p = cls.forced_partitions or spec.num_partitions
-        pdb = build_partitioned_db(vectors, p, spec.hnsw)
+        pdb = build_partitioned_db(vectors, p, spec.hnsw, build_graphs)
         pdb = quantize_db_vectors(
             pdb, spec.dtype, spec.quantizer() if spec.dtype == "pq" else None)
         return cls(spec, pdb, vectors if spec.keep_vectors else None, device,
@@ -339,6 +346,24 @@ class HNSWBackend(PartitionedBackend):
     """Single monolithic graph — partitioned with exactly one partition."""
 
     forced_partitions = 1
+
+
+@register_backend("partitioned-batched")
+class PartitionedBatchedBackend(PartitionedBackend):
+    """`partitioned` with its graphs built on the index's device, every
+    partition at once, batch by batch (`core/batch_build.py`), where
+    `partitioned` inserts one point at a time on the host. It searches,
+    saves and loads as `partitioned` does. The build is the span `build`
+    (`backend`, `rows`, `partitions`), one `insert` under it a batch."""
+
+    @classmethod
+    def build(cls, vectors: np.ndarray, spec: IndexSpec, device, mesh=None):
+        with TRACER.span("build", backend=cls.name, rows=len(vectors),
+                         partitions=spec.num_partitions):
+            return super().build(
+                vectors, spec, device, mesh=mesh,
+                build_graphs=functools.partial(batch_build.build_graphs,
+                                               device=device))
 
 
 # ---------------------------------------------------------------------------

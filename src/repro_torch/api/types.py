@@ -35,7 +35,10 @@ class IndexSpec:
     """Everything needed to build (or re-open) an index.
 
     metric  : "l2" | "ip" | "cosine" (see api.metrics)
-    backend : "exact" | "hnsw" | "partitioned" | "distributed" | "csd"
+    backend : "exact" | "hnsw" | "partitioned" | "distributed" | "csd" |
+              "partitioned-batched" (partitioned with its graphs built on
+              the index's device, a batch of points at a time; only the
+              port reads it, so the reference cannot open such an index)
     num_partitions : stage-1 sub-graph count (paper §4.1)
     dtype   : "float32" | "uint8" | "int8" | "pq" (metric "l2" only for
               the quantized ones)

@@ -42,6 +42,7 @@ __all__ = [
     "DeviceDB",
     "GraphBuilder",
     "build_hnsw",
+    "draw_levels",
     "restructure",
     "db_size_bytes",
     "db_to_tables",
@@ -362,6 +363,16 @@ class GraphBuilder:
         )
 
 
+def draw_levels(n: int, cfg: HNSWConfig) -> np.ndarray:
+    """The levels [n] int32 of a build of n points: one vectorized draw of
+    -log(U) * ml from the seeded stream, capped (the historical stream)."""
+    rng = np.random.default_rng(cfg.seed)
+    return np.minimum(
+        (-np.log(rng.uniform(1e-12, 1.0, size=n)) * cfg.ml).astype(np.int32),
+        cfg.max_level_cap - 1,
+    )
+
+
 def build_hnsw(vectors: np.ndarray, cfg: HNSWConfig) -> HostGraph:
     """Insert all points (Algorithm 1 of the HNSW paper), return the graph.
 
@@ -372,11 +383,7 @@ def build_hnsw(vectors: np.ndarray, cfg: HNSWConfig) -> HostGraph:
     """
     vectors = np.ascontiguousarray(vectors, dtype=np.float32)
     n, dim = vectors.shape
-    rng = np.random.default_rng(cfg.seed)
-    levels = np.minimum(
-        (-np.log(rng.uniform(1e-12, 1.0, size=n)) * cfg.ml).astype(np.int32),
-        cfg.max_level_cap - 1,
-    )
+    levels = draw_levels(n, cfg)
     b = GraphBuilder(dim, cfg)
     for i in range(n):
         b.insert_point(vectors[i], level=int(levels[i]))

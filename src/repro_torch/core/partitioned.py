@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core import hnsw_graph as hg
 from repro_torch.core.search import SearchParams, search_lanes
+from repro_torch.obs.trace import TRACER
 from repro_torch.optim.compression import code_dtype
 
 __all__ = [
@@ -43,22 +44,30 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _build_each(parts: list, cfgs: list) -> list[hg.HostGraph]:
+    return [hg.build_hnsw(v, c) for v, c in zip(parts, cfgs)]
+
+
 def build_partitioned_db(
     vectors: np.ndarray,
     num_partitions: int,
     cfg: hg.HNSWConfig,
+    build_graphs=None,
 ) -> PartitionedDB:
     """Split -> build P independent graphs (seed cfg.seed + p) ->
-    restructure to uniform shapes. Numpy tables, byte-identical to the
-    reference's; `hg.device_db` moves them to a device."""
+    restructure to uniform shapes. Numpy tables; `hg.device_db` moves them
+    to a device. `build_graphs(parts, cfgs) -> [HostGraph]` builds the P
+    graphs at once; by default `hg.build_hnsw` builds each in turn, and
+    the tables are byte-identical to the reference's."""
     n = vectors.shape[0]
     bounds = np.linspace(0, n, num_partitions + 1).astype(np.int64)
-    graphs, gids = [], []
+    parts, cfgs, gids = [], [], []
     for p in range(num_partitions):
         lo, hi = int(bounds[p]), int(bounds[p + 1])
-        part_cfg = hg.HNSWConfig(**{**cfg.__dict__, "seed": cfg.seed + p})
-        graphs.append(hg.build_hnsw(vectors[lo:hi], part_cfg))
+        parts.append(vectors[lo:hi])
+        cfgs.append(hg.HNSWConfig(**{**cfg.__dict__, "seed": cfg.seed + p}))
         gids.append(np.arange(lo, hi, dtype=np.int32))
+    graphs = (build_graphs or _build_each)(parts, cfgs)
     n_pad = _round_up(max(int(b1 - b0) for b0, b1 in zip(bounds, bounds[1:])), 32)
     up_pad = _round_up(max(g.up_nbrs.shape[1] for g in graphs), 8)
     dbs = [
@@ -111,13 +120,16 @@ def merge_topk(ids, dists, k: int):
 
 def search_partitioned(pdb: PartitionedDB, queries, p: SearchParams,
                        lut=None):
-    """Single-device two-stage search: every partition, then the merge.
+    """Single-device two-stage search: every partition, then the merge
+    (the span `merge`; `candidates`: a query's P*k).
 
     Returns (ids [B, k], dists [B, k], stats [P, B]) with global ids.
     `lut` ([B, M, 256]) is the per-query ADC table of a dtype="pq" DB,
     shared by every partition (one code space per index)."""
     ids, ds, stats = search_lanes(pdb.db, queries, p, lut)
-    out_i, out_d = merge_topk(ids.transpose(0, 1), ds.transpose(0, 1), p.k)
+    with TRACER.child_span("merge", candidates=ids.shape[0] * ids.shape[2]):
+        out_i, out_d = merge_topk(ids.transpose(0, 1), ds.transpose(0, 1),
+                                  p.k)
     return out_i, out_d, stats
 
 

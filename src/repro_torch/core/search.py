@@ -35,6 +35,11 @@ subspaces). Queries are not padded, and layer 0 runs hop-stepped as
 plain torch ops (`_search_layer0_pq`), as the reference's does.
 
 Ids are int32 everywhere, -1 padded; distances are +inf padded.
+
+Spans (`TRACER.child_span`, under the caller's `search`): `descend`
+around the upper layers (`lanes`; `hops`, the lockstep hops, and `syncs`,
+the host syncs that decided them) and `layer0` around layer 0 (`lanes`;
+`supersteps`, the traversal launches; `dev_ms` on CUDA).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from repro_torch.kernels.traversal import (
     metric_distance,
     visited_test_and_set,
 )
+from repro_torch.obs.trace import TRACER
 
 __all__ = [
     "SearchParams",
@@ -62,6 +68,7 @@ __all__ = [
     "pq_lut_distances",
     "visited_test_and_set",
     "prepare_queries",
+    "search_layer0",
     "search_lanes",
     "batch_search",
 ]
@@ -145,22 +152,28 @@ def _lane_distance_fn(db: DeviceDB, part, q=None, qsq=None,
 # ---------------------------------------------------------------------------
 
 
-def _greedy_upper(db: DeviceDB, part, distances, p: SearchParams):
+def _greedy_upper(db: DeviceDB, part, distances, p: SearchParams,
+                  span=None):
     """Descend every lane from its partition's top layer to layer 1.
 
     Returns the layer-0 entry (id, distance) and the distance evaluations
-    so far, which start at 1 for the entry point itself."""
+    so far, which start at 1 for the entry point itself. `span` (the
+    `descend` span) gets `hops`, the lockstep hops taken, and `syncs`, the
+    host syncs that decided whether to take one."""
     ep = db.entry[part]
     ep_d = distances(ep.long()[:, None])[:, 0]
     cur, cur_d = ep, ep_d
     calcs = torch.ones_like(ep)
     max_level = db.max_level[part]
     n_layers = db.up_nbrs.shape[1]                 # static cap - 1
+    hops = syncs = 0
     for layer in range(n_layers, 0, -1):
         running = layer <= max_level               # this partition has it
         for _ in range(p.upper_hops):
+            syncs += 1
             if not bool(running.any()):
                 break
+            hops += 1
             row = db.up_ptr[part, cur.long()]
             nbrs = db.up_nbrs[part, layer - 1, row.clamp_min(0).long()]
             valid = (nbrs >= 0) & (row >= 0)[:, None]
@@ -174,6 +187,8 @@ def _greedy_upper(db: DeviceDB, part, distances, p: SearchParams):
             running = running & (best_d < cur_d)
             cur = torch.where(running, best, cur)
             cur_d = torch.where(running, best_d, cur_d)
+    if span is not None:
+        span.set(hops=hops, syncs=syncs)
     return cur, cur_d, calcs
 
 
@@ -183,51 +198,67 @@ def _greedy_upper(db: DeviceDB, part, distances, p: SearchParams):
 
 
 def _initial_beam(n_pad: int, ep, ep_d, p: SearchParams):
-    """The layer-0 state of L lanes entering at (ep, ep_d): candidate and
-    final lists, the visited bitmap with ep set, hops and dist_calcs."""
-    L = ep.shape[0]
+    """The layer-0 state of L lanes entering at (ep, ep_d): one entry a
+    lane [L], or an entry list [L, K <= ef] ascending and (+inf, -1)
+    padded. Candidate and final lists, the visited bitmap with the
+    entries set, hops and dist_calcs."""
+    if ep.dim() == 1:
+        ep, ep_d = ep[:, None], ep_d[:, None]
+    L, K = ep.shape
     dev = ep.device
     C, EF = p.cand_size, p.ef
     visited = torch.zeros((L, bitmap_words(n_pad)), dtype=torch.int32,
                           device=dev)
-    _, visited = visited_test_and_set(
-        visited, ep[:, None], torch.ones((L, 1), dtype=torch.bool, device=dev))
+    _, visited = visited_test_and_set(visited, ep.clamp_min(0), ep >= 0)
     cand_d = torch.full((L, C), _INF, device=dev)
     cand_i = torch.full((L, C), -1, dtype=torch.int32, device=dev)
     fin_d = torch.full((L, EF), _INF, device=dev)
     fin_i = torch.full((L, EF), -1, dtype=torch.int32, device=dev)
-    cand_d[:, 0], cand_i[:, 0] = ep_d, ep
-    fin_d[:, 0], fin_i[:, 0] = ep_d, ep
+    cand_d[:, :K], cand_i[:, :K] = ep_d, ep
+    fin_d[:, :K], fin_i[:, :K] = ep_d, ep
     hops = torch.zeros(L, dtype=torch.int32, device=dev)
     calcs = torch.zeros(L, dtype=torch.int32, device=dev)
     return [cand_d, cand_i, fin_d, fin_i, visited, hops, calcs]
 
 
-def _search_layer0(db: DeviceDB, queries, qsq, ep, ep_d, p: SearchParams):
-    state = _initial_beam(db.vectors.shape[1], ep, ep_d, p)
+def search_layer0(vectors, sqnorms, l0_nbrs, queries, qsq, ep, ep_d,
+                  p: SearchParams, span=None):
+    """The beam search at layer 0 of partition-stacked tables [P, N_pad,
+    ...] from (ep, ep_d) (as `_initial_beam` takes them): `fused_layer0`
+    supersteps until no lane is live. Returns (fin_d, fin_i, hops,
+    calcs); `span` (the `layer0` span) gets `supersteps`, the traversal
+    launches."""
+    state = _initial_beam(vectors.shape[1], ep, ep_d, p)
     cand_d, _, fin_d, fin_i, _, hops, calcs = state
+    steps = 0
     # Algorithm 1 lines 2 & 5: a lane is live while its nearest candidate
     # can still improve the final list and its hop budget lasts
     while bool(((cand_d[:, 0] < fin_d[:, -1]) & (hops < p.max_hops)).any()):
-        fused_layer0(db.vectors, db.sqnorms, db.l0_nbrs, queries, qsq,
-                     *state, fused_hops=max(p.fused_hops, 1),
-                     max_hops=p.max_hops, metric=p.metric)
+        fused_layer0(vectors, sqnorms, l0_nbrs, queries, qsq, *state,
+                     fused_hops=max(p.fused_hops, 1), max_hops=p.max_hops,
+                     metric=p.metric)
+        steps += 1
+    if span is not None:
+        span.set(supersteps=steps)
     return fin_d, fin_i, hops, calcs
 
 
 def _search_layer0_pq(db: DeviceDB, part, distances, ep, ep_d,
-                      p: SearchParams):
+                      p: SearchParams, span=None):
     """Layer 0 of a dtype="pq" DB: one hop for every live lane per loop
     iteration, as plain torch ops on the DB's device.
 
     This is the port of the reference's PQ layer 0, which is plain JAX
     (its fused traversal kernel has no PQ variant), not a fallback from
     a kernel. `fused_hops` does not apply, so results are trivially
-    identical at every value."""
+    identical at every value. `span` gets `supersteps`, the hops."""
     state = _initial_beam(db.vectors.shape[1], ep, ep_d, p)
+    steps = 0
     while layer0_hop(db.l0_nbrs, part, distances, *state,
                      max_hops=p.max_hops):
-        pass
+        steps += 1
+    if span is not None:
+        span.set(supersteps=steps)
     _, _, fin_d, fin_i, _, hops, calcs = state
     return fin_d, fin_i, hops, calcs
 
@@ -268,17 +299,18 @@ def search_lanes(db: DeviceDB, queries, p: SearchParams, lut=None):
         B = lut.shape[0]
     lane = torch.arange(P * B, device=dev)
     part, qrow = lane // B, lane % B
-    if lut is None:
-        dist = _lane_distance_fn(db, part, queries[qrow], qsq[qrow],
-                                 p.metric)
-        ep, ep_d, up_calcs = _greedy_upper(db, part, dist, p)
-        fin_d, fin_i, hops, calcs = _search_layer0(db, queries, qsq, ep,
-                                                   ep_d, p)
-    else:
-        dist = _lane_distance_fn(db, part, lut=lut[qrow])
-        ep, ep_d, up_calcs = _greedy_upper(db, part, dist, p)
-        fin_d, fin_i, hops, calcs = _search_layer0_pq(db, part, dist, ep,
-                                                      ep_d, p)
+    dist = (_lane_distance_fn(db, part, queries[qrow], qsq[qrow], p.metric)
+            if lut is None else _lane_distance_fn(db, part, lut=lut[qrow]))
+    with TRACER.child_span("descend", lanes=P * B) as span:
+        ep, ep_d, up_calcs = _greedy_upper(db, part, dist, p, span)
+    with TRACER.child_span("layer0", device_clock=dev, lanes=P * B) as span:
+        if lut is None:
+            fin_d, fin_i, hops, calcs = search_layer0(
+                db.vectors, db.sqnorms, db.l0_nbrs, queries, qsq, ep, ep_d,
+                p, span)
+        else:
+            fin_d, fin_i, hops, calcs = _search_layer0_pq(db, part, dist,
+                                                          ep, ep_d, p, span)
     k_d, k_i = fin_d[:, : p.k], fin_i[:, : p.k]
     k_g = torch.where(k_i >= 0,
                       db.gids[part[:, None], k_i.clamp_min(0).long()], -1)
