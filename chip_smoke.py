@@ -261,8 +261,28 @@ Phases, each of which must pass (any failure raises and exits non-zero):
                the cell's request; and its spans (`graph_spans`): build >
                one insert a batch (rows summing to the index's, each with
                dev_ms), search > encode, descend, layer0, merge with their
-               attrs against the backend, layer0's dev_ms, and the spans as
+               attrs against the backend (the descent on its kernel route:
+               0 syncs, 1 launch), layer0's dev_ms, and the spans as
                torch.profiler ranges.
+  7c. descent — the upper-layer descent kernel (csrc/descent.cu) against
+               its plain version (`greedy_descent_ref`, lockstep torch ops)
+               bitwise in cur, cur_d and calcs: on small lattice graphs
+               (tie-heavy; 8-wide upper rows at D_pad 128, 24-wide at 256)
+               for float32 / uint8 / int8 rows under l2 / ip / cosine, and
+               on the graph cell's 1M-row, 4-partition uint8 graph at its
+               40,000 lanes (uint8 and int8 rows under l2, float32 rows of
+               the same values under l2 / ip / cosine), one launch each;
+               one request of the cell through the service on the kernel
+               route (1 launch) and with the torch-op descent swapped in,
+               ids, distances and stats bitwise; the kernel's device time
+               at the cell's shapes beside the plain version's and its
+               floors (the bytes it reads once; its lanes' chains of
+               dependent loads at an L2 hit's latency), and the request's
+               host ms on both routes. The serving paths of phases 4-6e
+               and 12 count descent.cu in windows of their own
+               (`descent_window`): one launch a descent on the card, one
+               descent a request (a shard's or a mesh slot's part of one),
+               and exactly one a request on the main and quant paths.
   8. lm      — the LM substrate, last, after torch.cuda.empty_cache():
                deepseek-v2-lite-16b at full width and depth (27 layers, d
                2048, 16 MLA heads, 64 experts top-6, vocab 102,400; 15.7 B
@@ -541,6 +561,15 @@ EXACT_QUERIES, EXACT_SPLITS = 10_000, 5
 # the graph cell's configuration at GRAPH_ROWS rows, GRAPH_QUERIES queries
 GRAPH_SAME, GRAPH_RECALL, GRAPH_RECALL_TOL = 8192, 16384, 0.005
 GRAPH_ROWS, GRAPH_QUERIES, GRAPH_EF = 1_000_000, 10_000, 40
+# the descent phase: the upper-layer hop budget (SearchParams' default),
+# its small lattice graphs (partitions, rows a partition, dim, M) and their
+# queries
+DESCENT_HOPS = 32
+DESCENT_SMALL = ((3, 400, 6, 4), (2, 400, 200, 20))
+DESCENT_SMALL_QUERIES = 64
+# a dependent load that hits L2, where the upper layers' rows stay: the
+# pointer chase of scripts/torch_traversal_profile.py over 16 MiB, H100 SXM
+L2_LOAD_S = 250.1e-9
 # the graph cell's configuration and limits, as bench/run.py reads them
 GRAPH_CONFIG = ROOT / "bench" / "configs" / "bigann-u8-hnsw-p4.json"
 GRAPH_LIMITS = ROOT / "bench" / "workloads" / "hnsw-u8-q10k.json"
@@ -1260,6 +1289,43 @@ def check_traversal_launches(what: str, n_batches: int) -> int:
     return launches
 
 
+@contextlib.contextmanager
+def descent_window(what: str, expected: int | None = None):
+    """The card's upper-layer descents while the block runs, both counts
+    from 0: core/search.py's `greedy_descent` calls on CUDA tensors (one a
+    search_lanes call: a request of a one-index backend, a shard's or a
+    mesh slot's part of one) and descent.cu's launches. On the way out:
+    at least one descent, one launch each (no other route on the card),
+    and `expected` descents where the caller knows them. Yields a dict
+    whose "launches" is set on the way out."""
+    from repro_torch.core import search as cs
+    from repro_torch.kernels import descent as ds
+
+    fn, lock, n = cs.greedy_descent, threading.Lock(), {"calls": 0}
+
+    def counting(vectors, *args, **kw):
+        if vectors.is_cuda:
+            with lock:
+                n["calls"] += 1
+        return fn(vectors, *args, **kw)
+
+    ds.DESCENT_LAUNCHES = 0
+    cs.greedy_descent = counting
+    try:
+        yield n
+    finally:
+        cs.greedy_descent = fn
+    n["launches"] = ds.DESCENT_LAUNCHES
+    log(f"[{what}] descent.cu launches {n['launches']} for {n['calls']} "
+        f"descents on the card")
+    check(n["calls"] > 0, f"the {what} path made no descent on the card")
+    check(n["launches"] == n["calls"],
+          f"the {what} path launched descent.cu {n['launches']} times for "
+          f"{n['calls']} descents")
+    check(expected is None or n["calls"] == expected,
+          f"the {what} path made {n['calls']} descents, expected {expected}")
+
+
 def main_phase(svc, data, queries) -> dict:
     from repro_torch.api import IndexSpec, SearchRequest, SearchService
     from repro_torch.kernels import traversal as tr
@@ -1272,8 +1338,10 @@ def main_phase(svc, data, queries) -> dict:
     n_batches = len(queries) // BATCH
     tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
     reset_adc_counts()
-    ids_by, st = serve_paths(svc, queries, gt, "main",
-                             {False: 0.95, True: 0.95})
+    # one descent a request: serve_paths serves n_batches + 1 a rerank
+    with descent_window("main", 2 * (n_batches + 1)) as descents:
+        ids_by, st = serve_paths(svc, queries, gt, "main",
+                                 {False: 0.95, True: 0.95})
     launches = check_traversal_launches("main", n_batches)
     check_fused_hops(svc, queries, "main")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1281,8 +1349,8 @@ def main_phase(svc, data, queries) -> dict:
         cpu = SearchService.load(tmp, device="cpu")
     check_cpu_copy(svc, cpu, queries[:BATCH], "main")
     take_adc_counts("main")
-    return {"launches": launches, "gt": gt, "ids": ids_by,
-            "qps": st[False]["qps"]}
+    return {"launches": launches, "descent_launches": descents["launches"],
+            "gt": gt, "ids": ids_by, "qps": st[False]["qps"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1298,6 +1366,7 @@ def timing_phase(svc, queries, what: str, reps: int = 5) -> dict:
     CUDA events around it (median of `reps`). `queries` are in the index's
     space (codes for uint8/int8)."""
     from repro_torch.core import search as cs
+    from repro_torch.kernels import ops
     from repro_torch.kernels import traversal as tr
 
     db = svc.backend.pdb.db
@@ -1305,17 +1374,15 @@ def timing_phase(svc, queries, what: str, reps: int = 5) -> dict:
     p = svc.backend.params(10, 40).resolve(db.l0_nbrs.shape[-1])
     q = cs.prepare_queries(queries, d_pad, db.vectors.device)
     B = q.shape[0]
-    lane = torch.arange(P * B, device=q.device)
-    part = lane // B
     qsq = (q * q).sum(-1)
-    dist = cs._lane_distance_fn(db, part, q[lane % B], qsq[lane % B],
-                                p.metric)
     # host clock around each stage of one batch (each ends synchronized)
     split = {}
     for _ in range(3):                     # the last of 3 repeats is kept
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ep, ep_d, _ = cs._greedy_upper(db, part, dist, p)
+        ep, ep_d, _ = ops.greedy_descent(
+            db.vectors, db.sqnorms, db.up_ptr, db.up_nbrs, db.entry,
+            db.max_level, q, qsq, upper_hops=p.upper_hops, metric=p.metric)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         cs.search_layer0(db.vectors, db.sqnorms, db.l0_nbrs, q, qsq, ep,
@@ -1446,8 +1513,10 @@ def scalar_phase(path: str, dtype: str, queries, main_out) -> dict:
     gate = {False: 0.95, True: 0.95} if dtype == "uint8" else {True: 0.90}
     tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
     reset_adc_counts()
-    ids_by, _ = serve_paths(svc, queries, main_out["gt"], dtype, gate)
-    launches = check_traversal_launches(dtype, len(queries) // BATCH)
+    n_batches = len(queries) // BATCH
+    with descent_window(dtype, 2 * (n_batches + 1)) as descents:
+        ids_by, _ = serve_paths(svc, queries, main_out["gt"], dtype, gate)
+    launches = check_traversal_launches(dtype, n_batches)
     if dtype == "uint8":
         if exact_bytes:
             for rerank in (False, True):
@@ -1466,13 +1535,15 @@ def scalar_phase(path: str, dtype: str, queries, main_out) -> dict:
                    (False, True) if exact_bytes else (False,))
     take_adc_counts(dtype)
     timing = timing_phase(svc, quant.encode_f32(queries[:BATCH]), dtype)
-    return {"launches": launches, "timing": timing}
+    return {"launches": launches, "descent_launches": descents["launches"],
+            "timing": timing}
 
 
 def pq_split(svc, q) -> dict:
     """Host clock around the stages of one PQ partitioned batch (each ends
     synchronized): LUT build, upper-layer descent, hop-stepped layer 0."""
     from repro_torch.core import search as cs
+    from repro_torch.kernels.descent import greedy_upper
     from repro_torch.optim import build_pq_lut
 
     db = svc.backend.pdb.db
@@ -1490,7 +1561,8 @@ def pq_split(svc, q) -> dict:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         dist = cs._lane_distance_fn(db, part, lut=lut[lane % B])
-        ep, ep_d, _ = cs._greedy_upper(db, part, dist, p)
+        ep, ep_d, _ = greedy_upper(db.up_ptr, db.up_nbrs, db.entry,
+                                   db.max_level, part, dist, p.upper_hops)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         _, _, hops, _ = cs._search_layer0_pq(db, part, dist, ep, ep_d, p)
@@ -2176,16 +2248,23 @@ def serve_phase(svc, queries, main_out, csd_store, tmp: str) -> dict:
               f"(rerank={rerank})")
     out = {"runs": {}}
     tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
-    for replicas in SERVE_REPLICAS:
-        for max_batch in SERVE_MAX_BATCH:
-            for rerank in (False, True):
-                what = (f"serve r={replicas} b={max_batch} "
-                        f"rerank={'on' if rerank else 'off'}")
-                run = serve_async_run(svc, queries, replicas, max_batch,
-                                      rerank)
-                check_same(what, run, *direct[rerank])
-                log_serve(what, run)
-                out["runs"][replicas, max_batch, rerank] = run["stats"]
+    # one descent a batch the servers formed
+    with descent_window("serve sweep") as descents:
+        for replicas in SERVE_REPLICAS:
+            for max_batch in SERVE_MAX_BATCH:
+                for rerank in (False, True):
+                    what = (f"serve r={replicas} b={max_batch} "
+                            f"rerank={'on' if rerank else 'off'}")
+                    run = serve_async_run(svc, queries, replicas, max_batch,
+                                          rerank)
+                    check_same(what, run, *direct[rerank])
+                    log_serve(what, run)
+                    out["runs"][replicas, max_batch, rerank] = run["stats"]
+    batches = sum(sum(st.batch_sizes.values()) for st in out["runs"].values())
+    check(descents["calls"] == batches,
+          f"the serve sweep made {descents['calls']} descents for {batches} "
+          f"batches")
+    out["descent_launches"] = descents["launches"]
     launches, ldg = tr.ASYNC_LAUNCHES, tr.LAUNCHES
     log(f"[serve] traversal launches over the sweep: traversal_async.cu "
         f"{launches}, traversal.cu {ldg}")
@@ -2333,8 +2412,10 @@ def ingest_phase(data, queries, rebuild_path: str) -> dict:
         return float(np.percentile(lat, 50))
 
     insert_s = 0.0
-    with SearchServer(svc, replicas=2, max_batch=BATCH,
-                      max_wait_ms=SERVE_WAIT_MS) as srv:
+    # every segment of a request its own descent
+    with descent_window("ingest") as descents, SearchServer(
+            svc, replicas=2, max_batch=BATCH,
+            max_wait_ms=SERVE_WAIT_MS) as srv:
         for i in range(N_INGEST // INGEST_STEP):
             t0 = time.perf_counter()
             gids = srv.insert(data[i * INGEST_STEP:(i + 1) * INGEST_STEP])
@@ -2425,7 +2506,8 @@ def ingest_phase(data, queries, rebuild_path: str) -> dict:
         f"the card on one {BATCH}-query batch, rerank off and on; phase "
         f"{time.perf_counter() - t_phase:.1f}s")
     svc.close()
-    return {"launches": launches, "rows_s": rows_s, "seal_s": seal_s,
+    return {"launches": launches, "descent_launches": descents["launches"],
+            "rows_s": rows_s, "seal_s": seal_s,
             "compact_s": compact_s, "p50": (p50_before, p50_after),
             "recall": rec, "resident": (svc.resident_bytes(),
                                         svc.peak_resident_bytes)}
@@ -2480,14 +2562,17 @@ def loop_stats(svc, queries, rerank: bool, what: str) -> dict:
 def counted(fn, what: str, seen: dict):
     """fn() with the traversal launch counters set to 0 just before and
     read just after: traversal_async.cu must have launched and
-    traversal.cu not. `seen["ldg"]` adds up traversal.cu's launches since
-    the previous reset, so the phase's total stays checked. Returns (fn's
-    result, traversal_async.cu's launches)."""
+    traversal.cu not; in a `descent_window`, whose descent.cu launches
+    `seen["descent"]` adds up. `seen["ldg"]` adds up traversal.cu's
+    launches since the previous reset, so the phase's total stays
+    checked. Returns (fn's result, traversal_async.cu's launches)."""
     from repro_torch.kernels import traversal as tr
 
     seen["ldg"] += tr.LAUNCHES
     tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
-    out = fn()
+    with descent_window(f"cluster {what}") as descents:
+        out = fn()
+    seen["descent"] = seen.get("descent", 0) + descents["launches"]
     launches, ldg = tr.ASYNC_LAUNCHES, tr.LAUNCHES
     log(f"[cluster] {what}: traversal_async.cu {launches} launches, "
         f"traversal.cu {ldg}")
@@ -2853,7 +2938,7 @@ def cluster_phase(svc, data, queries, small_path, tmp: str) -> dict:
         f"{time.perf_counter() - t_phase:.1f}s")
     check(ldg == 0, f"the cluster phase launched traversal.cu {ldg} times")
     return {"launches": sum(per_path.values()), "per_path": per_path,
-            "runs": runs, "base": base, "profile": prof,
+            "descent_launches": seen["descent"], "runs": runs, "base": base, "profile": prof,
             "profile_direct": prof_d, "failovers": failovers, "dist": dist}
 
 
@@ -3467,8 +3552,9 @@ def graph_spans(svc, built, queries) -> dict:
     and of one traced request of the cell's shape: `build` > one `insert`
     a batch (`batch_schedule`), its rows summing to the index's, each on
     the device's clock; `search` > `encode`, `descend`, `layer0`, `merge`
-    with their attrs against the backend (lanes P x B, hops <= syncs,
-    supersteps >= 1, P x k candidates), layer0's device clock resolved;
+    with their attrs against the backend (lanes P x B, the descent on the
+    kernel route: 0 syncs, 1 launch; supersteps >= 1, P x k candidates),
+    layer0's device clock resolved;
     and under torch.profiler the search spans as host ranges. Returns host
     and device ms."""
     from torch.profiler import ProfilerActivity, profile
@@ -3515,12 +3601,14 @@ def graph_spans(svc, built, queries) -> dict:
           f"descend, layer0, merge")
     by = {ev["name"]: ev["attrs"] for ev in spans}
     lanes = p * len(queries)
-    check(by["descend"]["lanes"] == lanes == by["layer0"]["lanes"]
-          and 0 < by["descend"]["hops"] <= by["descend"]["syncs"]
+    check(by["descend"] == {"lanes": lanes, "route": "kernel", "syncs": 0,
+                            "launches": 1}
+          and by["layer0"]["lanes"] == lanes
           and by["layer0"]["supersteps"] >= 1
           and by["merge"] == {"candidates": p * SCAN_K},
-          f"the graph spans' attrs {by}: expected {lanes} lanes, hops <= "
-          f"syncs, supersteps >= 1, {p * SCAN_K} candidates")
+          f"the graph spans' attrs {by}: expected {lanes} lanes, the "
+          f"descent on the kernel route (0 syncs, 1 launch), supersteps >= "
+          f"1, {p * SCAN_K} candidates")
     layer0 = next(ev for ev in spans if ev["name"] == "layer0")
     check(layer0.get("dev_ms", 0.0) > 0.0,
           f"layer0's device clock unresolved: {layer0}")
@@ -3532,8 +3620,9 @@ def graph_spans(svc, built, queries) -> dict:
     out["inserts"] = len(ins)
     out["build"] = (root["t1"] - root["t0"]) * 1e3
     log(f"[graph] spans, host ms: search {out['search']:.3f} = encode "
-        f"{out['encode']:.3f} + descend {out['descend']:.3f} "
-        f"({by['descend']['hops']} hops, {by['descend']['syncs']} syncs) + "
+        f"{out['encode']:.3f} + descend {out['descend']:.3f} (route "
+        f"{by['descend']['route']}, {by['descend']['launches']} launch, "
+        f"{by['descend']['syncs']} syncs) + "
         f"layer0 {out['layer0']:.3f} ({by['layer0']['supersteps']} "
         f"supersteps, device {out['layer0_dev']:.3f}) + merge "
         f"{out['merge']:.3f}; build {out['build']:.1f} = {len(ins)} inserts "
@@ -3708,6 +3797,286 @@ def graph_phase(seed: int) -> dict:
     check(out["recall_batched"] >= out["recall_host"] - GRAPH_RECALL_TOL,
           f"the batched graph's recall {out['recall_batched']:.5f} is below "
           f"build_hnsw's {out['recall_host']:.5f} - {GRAPH_RECALL_TOL}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the upper-layer descent (csrc/descent.cu)
+# ---------------------------------------------------------------------------
+
+
+def descent_pair(args, metric: str, what: str) -> tuple:
+    """The kernel through ops.greedy_descent (one launch counted) and the
+    plain version greedy_descent_ref on the same operands (`args`: the
+    stacked tables, the queries and their qsq): cur, cur_d and calcs
+    bitwise equal. Returns the plain version's outputs and the largest
+    |cur_d| difference measured."""
+    from repro_torch.kernels import descent as ds
+    from repro_torch.kernels import ops
+
+    kw = dict(upper_hops=DESCENT_HOPS, metric=metric)
+    n0 = ds.DESCENT_LAUNCHES
+    got = ops.greedy_descent(*args, **kw)
+    want = ds.greedy_descent_ref(*args, **kw)
+    torch.cuda.synchronize()
+    n = ds.DESCENT_LAUNCHES - n0
+    check(n == 1, f"{what} {metric}: {n} descent.cu launches, expected 1")
+    err = float(torch.where(got[1] == want[1], 0.0,
+                            (got[1] - want[1]).abs()).max())
+    bad = [name for name, a, b in zip(("cur", "cur_d", "calcs"), got, want)
+           if not torch.equal(a, b)]
+    check(not bad, f"{what} {metric}: descent.cu differs from the plain "
+          f"version in {bad} (|cur_d| differs by up to {err})")
+    return want, err
+
+
+def descent_args(db, queries, dtype: str) -> tuple:
+    """ops.greedy_descent's operands over a stacked uint8 DB's tables with
+    its rows as `dtype` rows: uint8 as they are, float32 their values, int8
+    shifted by -128 (signed codes), the queries likewise ([B, D_pad]
+    float32 code values), the sqnorms those of the stored rows with the
+    +inf pads kept."""
+    v, sq, q = db.vectors, db.sqnorms, queries
+    if dtype != "uint8":
+        shift = -128.0 if dtype == "int8" else 0.0
+        f = v.float() + shift
+        sq = torch.where(torch.isinf(sq), sq, (f * f).sum(-1))
+        v, q = f.to(getattr(torch, dtype)), q + shift
+        del f
+    return (v.contiguous(), sq.contiguous(), db.up_ptr, db.up_nbrs,
+            db.entry, db.max_level, q.contiguous(), (q * q).sum(-1))
+
+
+def descent_tries(args, metric: str) -> tuple:
+    """Each lane's tried hops on its walk: greedy_upper's walk, counted
+    lane by lane. A tried hop waits on two dependent loads, the neighbour
+    row and then the rows, sqnorms and up_ptr it names. Returns (tries
+    [L] int64, the walk's end [L])."""
+    from repro_torch.kernels.traversal import metric_distance
+
+    vectors, sqnorms, up_ptr, up_nbrs, entry, max_level, q, qsq = args
+    P, B = vectors.shape[0], q.shape[0]
+    lane = torch.arange(P * B, device=vectors.device)
+    part, qrow = lane // B, lane % B
+    rows, qd, qs = part[:, None], q[qrow][:, None, :], qsq[qrow][:, None]
+
+    def distances(idx):
+        dot = (vectors[rows, idx].float() * qd).sum(-1)
+        return metric_distance(metric, dot, sqnorms[rows, idx], qs)
+
+    cur = entry[part]
+    cur_d = distances(cur.long()[:, None])[:, 0]
+    tries = torch.zeros_like(lane)
+    for layer in range(up_nbrs.shape[1], 0, -1):
+        running = layer <= max_level[part]
+        for _ in range(DESCENT_HOPS):
+            if not bool(running.any()):
+                break
+            tries += running
+            row = up_ptr[part, cur.long()]
+            nbrs = up_nbrs[part, layer - 1, row.clamp_min(0).long()]
+            valid = (nbrs >= 0) & (row >= 0)[:, None]
+            safe = torch.where(valid, nbrs, torch.zeros_like(nbrs))
+            d = torch.where(valid, distances(safe.long()), float("inf"))
+            j = d.argmin(dim=1, keepdim=True)
+            best_d, best = d.gather(1, j)[:, 0], safe.gather(1, j)[:, 0]
+            running = running & (best_d < cur_d)
+            cur = torch.where(running, best, cur)
+            cur_d = torch.where(running, best_d, cur_d)
+    return tries, cur
+
+
+def descent_small(seed: int) -> float:
+    """The kernel against the plain version on small lattice graphs
+    (`DESCENT_SMALL`: rows of small integers, so distances tie often),
+    float32 / uint8 / int8 rows under l2 / ip / cosine: a graph of 8-wide
+    upper rows at D_pad 128, and one of 24-wide rows (two tiles) at D_pad
+    256 (two blocks of each 8-bit row, eight of a float32 row). Returns
+    the largest |cur_d| difference measured."""
+    from repro_torch.core import hnsw_graph as hg
+    from repro_torch.core.partitioned import (build_partitioned_db,
+                                              quantize_db_vectors)
+
+    g = np.random.default_rng(seed)
+    worst = 0.0
+    for p, n, dim, m in DESCENT_SMALL:
+        rows = g.integers(0, 4, (p * n, dim)).astype(np.float32)
+        pdb = quantize_db_vectors(build_partitioned_db(
+            rows, p, hg.HNSWConfig(M=m, ef_construction=40)), "uint8")
+        db = hg.device_db(pdb.db, DEVICE)
+        q = torch.zeros((DESCENT_SMALL_QUERIES, db.vectors.shape[-1]),
+                        device=DEVICE)
+        q[:, :dim] = torch.from_numpy(g.integers(
+            0, 4, (DESCENT_SMALL_QUERIES, dim)).astype(np.float32))
+        what = (f"lattice graph P={p} x {n} rows, D={dim} (D_pad "
+                f"{db.vectors.shape[-1]}), upper rows of "
+                f"{db.up_nbrs.shape[-1]}, max_level "
+                f"{db.max_level.tolist()}")
+        for dtype in ("float32", "uint8", "int8"):
+            args = descent_args(db, q, dtype)
+            for metric in ("l2", "ip", "cosine"):
+                worst = max(worst, descent_pair(args, metric,
+                                                f"{what}, {dtype}")[1])
+        log(f"[descent] {what}: descent.cu bitwise equal to the plain "
+            f"version (cur, cur_d, calcs) for float32 / uint8 / int8 rows "
+            f"under l2 / ip / cosine, {DESCENT_SMALL_QUERIES} queries")
+    return worst
+
+
+def descent_request(svc, queries) -> dict:
+    """One request of the cell through the service with the kernel route
+    (DESCENT_LAUNCHES exactly 1 a request) and again with the torch-op
+    descent swapped in (core/search.py's `greedy_descent` pointed at the
+    plain version: no launch): ids, distances, hops and dist_calcs
+    bitwise equal. Then the request's host ms on each route, in turns."""
+    from repro_torch.api import SearchRequest
+    from repro_torch.core import search as cs
+    from repro_torch.kernels import descent as ds
+
+    req = SearchRequest(queries, k=SCAN_K, ef=GRAPH_EF, with_stats=True)
+    kernel = cs.greedy_descent
+
+    def served(fn):
+        cs.greedy_descent = fn
+        try:
+            n0 = ds.DESCENT_LAUNCHES
+            t0 = time.perf_counter()
+            r = svc.search(req)
+            out = (r.ids.cpu(), r.dists.cpu(), r.stats.hops.cpu(),
+                   r.stats.dist_calcs.cpu())
+            return out, ds.DESCENT_LAUNCHES - n0, \
+                (time.perf_counter() - t0) * 1e3
+        finally:
+            cs.greedy_descent = kernel
+
+    served(kernel)
+    got, n_kernel, _ = served(kernel)
+    want, n_plain, _ = served(ds.greedy_descent_ref)
+    check((n_kernel, n_plain) == (1, 0),
+          f"the cell's request launched descent.cu {n_kernel} times on the "
+          f"kernel route and {n_plain} on the plain one (expected 1, 0)")
+    bad = [name for name, a, b in zip(("ids", "dists", "hops", "dist_calcs"),
+                                      got, want) if not torch.equal(a, b)]
+    check(not bad, f"the cell's request on the kernel route differs from "
+          f"the torch-op descent in {bad}")
+    ms = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel") * 3:
+        fn = kernel if name == "kernel" else ds.greedy_descent_ref
+        ms[name].append(served(fn)[2])
+    return {k: float(np.median(v)) for k, v in ms.items()}
+
+
+def descent_phase(seed: int) -> dict:
+    """The upper-layer descent kernel on the card: against the plain
+    version (`greedy_descent_ref`, the lockstep torch ops of
+    `greedy_upper`) bitwise on the small lattice graphs, and on the
+    graph cell's 1M-row, 4-partition uint8 graph (GRAPH_CONFIG, built
+    through SearchService.build) at its 40,000 lanes for uint8 and int8
+    rows under l2 and float32 rows of the same values under l2 / ip /
+    cosine; one request of the cell through the service on both routes
+    (`descent_request`); the kernel's device time at the cell's shapes
+    beside the plain version's and its floors: the bytes it must read
+    once from device memory, and the chain of dependent loads its lanes
+    wait on (`descent_tries`), the larger of which is its bound."""
+    from bench import generator
+
+    from repro_torch.api import IndexSpec, SearchService
+    from repro_torch.core.search import prepare_queries
+    from repro_torch.kernels import descent as ds
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    worst = descent_small(seed)
+    base = generator.base_rows(GRAPH_ROWS, seed)
+    queries = generator.query_pool(GRAPH_ROWS, 1, GRAPH_QUERIES, seed)[0]
+    spec = IndexSpec.from_json(json.loads(GRAPH_CONFIG.read_text())["spec"])
+    t0 = time.perf_counter()
+    svc = SearchService.build(base, spec, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"[descent] the graph cell's index ({GRAPH_ROWS} uint8 rows, P="
+        f"{spec.num_partitions}): built in {time.perf_counter() - t0:.1f}s")
+    db = svc.backend.pdb.db
+    q = prepare_queries(queries.astype(np.float32), db.vectors.shape[-1],
+                        DEVICE)
+    lanes = db.vectors.shape[0] * len(queries)
+    what = (f"the cell's graph ({lanes} lanes, N_pad {db.vectors.shape[1]}, "
+            f"upper rows of {db.up_nbrs.shape[-1]}, max_level "
+            f"{db.max_level.tolist()})")
+    out = {}
+    for dtype in ("uint8", "int8", "float32"):
+        args = descent_args(db, q, dtype)
+        for metric in (("l2",) if dtype != "float32"
+                       else ("l2", "ip", "cosine")):
+            want, err = descent_pair(args, metric, f"{what}, {dtype}")
+            worst = max(worst, err)
+        if dtype == "uint8":
+            calcs = int(want[2].sum())
+            cell_args, want_cur = args, want[0]
+        del args
+        torch.cuda.empty_cache()
+    log(f"[descent] {what}: descent.cu bitwise equal to the plain version "
+        f"for uint8 / int8 rows (l2) and float32 rows (l2 / ip / cosine); "
+        f"{calcs / lanes:.2f} upper-layer evaluations a lane")
+    out["err"] = worst
+    out["request_ms"] = descent_request(svc, queries)
+    kw = dict(upper_hops=DESCENT_HOPS, metric="l2")
+    reps = 20
+
+    def kernel_runs():
+        return lambda: [ops.greedy_descent(*cell_args, **kw)
+                        for _ in range(reps)]
+
+    out["ms"] = profiled_ms(kernel_runs, reps, "descent",
+                            "descent.cu at the cell's shapes")
+    out["plain_ms"] = device_ms(
+        lambda: ds.greedy_descent_ref(*cell_args, **kw), reps=3)
+    out["plain_call_ms"] = median_ms(
+        lambda: ds.greedy_descent_ref(*cell_args, **kw), reps=3)
+    # the bytes read at least once: the upper-layer nodes' rows, sqnorms
+    # and up_ptr, their non-empty neighbour rows, the queries and their
+    # qsq, and the outputs (the evaluations' bytes, calcs x (row + 8),
+    # come again and again from L2)
+    row_bytes = db.vectors.shape[-1] * db.vectors.element_size()
+    n_upper = int((db.up_ptr >= 0).sum())
+    nbr_rows = int((db.up_nbrs >= 0).any(-1).sum())
+    once = (n_upper * (row_bytes + 8) + nbr_rows * db.up_nbrs.shape[-1] * 4
+            + cell_args[6].numel() * 4 + len(queries) * 4 + lanes * 12)
+    out["bytes_ms"] = once / HBM_BYTES_PER_S * 1e3
+    # the dependent loads: the entry's, then two a tried hop; a lane's
+    # chain is the launch's floor, and so is every chain's sum over the
+    # most warps (a warp a lane) the card holds at once
+    tries, end = descent_tries(cell_args, "l2")
+    check(torch.equal(end, want_cur),
+          "descent_tries walked to other entries than the plain version")
+    chain = 1 + 2 * tries
+    props = torch.cuda.get_device_properties(0)
+    warps = props.multi_processor_count \
+        * props.max_threads_per_multi_processor // 32
+    out["latency_ms"] = max(int(chain.max()), int(chain.sum()) / warps) \
+        * L2_LOAD_S * 1e3
+    out["bound_ms"] = max(out["bytes_ms"], out["latency_ms"])
+    out["bound_by"] = ("latency" if out["latency_ms"] >= out["bytes_ms"]
+                       else "bytes")
+    out["calcs"] = calcs
+    log(f"[descent] at the cell's shapes ({lanes} lanes, uint8, l2): "
+        f"descent.cu {out['ms']:.4f} device ms a launch (profiler, mean of "
+        f"{reps}); the plain version {out['plain_ms']:.3f} device ms "
+        f"({out['plain_call_ms']:.3f} ms a call, CUDA events, host syncs "
+        f"included); floors: bytes {out['bytes_ms']:.4f} ms ({once} B read "
+        f"once at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: {n_upper} upper-layer "
+        f"nodes, {nbr_rows} neighbour rows, the queries; the evaluations' "
+        f"{calcs} x {row_bytes + 8} B come from L2), latency "
+        f"{out['latency_ms']:.4f} ms (tried hops a lane mean "
+        f"{float(tries.float().mean()):.2f}, max {int(tries.max())}; "
+        f"{int(chain.sum())} dependent loads over {warps} warps, the longest "
+        f"chain {int(chain.max())}, at {L2_LOAD_S * 1e9:.1f} ns a load); "
+        f"|cur_d| differences measured: {worst}; the cell's request, host "
+        f"ms (median of 6, in turns): kernel route "
+        f"{out['request_ms']['kernel']:.3f}, torch-op descent "
+        f"{out['request_ms']['plain']:.3f}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    del svc, cell_args
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5747,7 +6116,8 @@ def knn_lm_check(want: dict) -> dict:
     top-2 margin exceeds KNN_MARGIN (steps under it are logged). The
     launch counters are set to 0 just before the card's run and read just
     after: traversal_async.cu and flash_attention.cu (float32) > 0,
-    traversal.cu and the tensor-core flash kernel 0."""
+    traversal.cu and the tensor-core flash kernel 0; descent.cu once a
+    descent (`descent_window`)."""
     from repro_torch.configs import reduced_config
     from repro_torch.kernels import attention
     from repro_torch.kernels import traversal as tr
@@ -5758,10 +6128,12 @@ def knn_lm_check(want: dict) -> dict:
     tr.ASYNC_LAUNCHES = tr.LAUNCHES = 0
     attention.TC_LAUNCHES = attention.FMA_LAUNCHES = 0
     t0 = time.perf_counter()
-    got = knn.run(DEVICE, params=params)
-    torch.cuda.synchronize()
+    with descent_window("tools kNN-LM") as descents:
+        got = knn.run(DEVICE, params=params)
+        torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
     launches = {"traversal_async": tr.ASYNC_LAUNCHES, "traversal": tr.LAUNCHES,
+                "descent": descents["launches"],
                 "flash_attention_fma": attention.FMA_LAUNCHES,
                 "flash_attention": attention.TC_LAUNCHES}
     log(f"[tools] (c) kNN-LM: {got['memories']} memories, {knn.STEPS} steps "
@@ -5851,11 +6223,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="kernel,main,quant,csd,cost,serve,ingest,"
-                            "cluster,scan,graph_build,lm,dense,ssm,train,"
-                            "tools",
+                            "cluster,scan,graph_build,descent,lm,dense,ssm,"
+                            "train,tools",
                     help="comma list of kernel,main,quant,csd,cost,serve,"
-                         "ingest,cluster,scan,graph_build,lm,dense,ssm,"
-                         "train,tools "
+                         "ingest,cluster,scan,graph_build,descent,lm,dense,"
+                         "ssm,train,tools "
                          "(card and build always run; serve and cost need "
                          "csd, csd needs quant, quant, ingest and cluster "
                          "need main)")
@@ -5999,6 +6371,11 @@ def run_phases(phases: set, stack: contextlib.ExitStack, t_all: float
     if "graph_build" in phases:
         torch.cuda.empty_cache()
         graph_phase(seed=5)
+    # 7c. descent
+    descended = None
+    if "descent" in phases:
+        torch.cuda.empty_cache()
+        descended = descent_phase(seed=6)
     # 8. lm
     lm = None
     if "lm" in phases:
@@ -6048,6 +6425,17 @@ def run_phases(phases: set, stack: contextlib.ExitStack, t_all: float
             kern.get(("ldg", dt)),
             t and {"ms": t["ldg_ms"], "plain_ms": t["plain_ms"],
                    "bound_ms": t["bound_ms"]}, "bytes"))
+    # the paths' descent launches, each path's counted in its own window
+    # (the descent phase's checks and timings are not a path's)
+    descents = sum(x["descent_launches"] for x in (
+        main_out, quant and quant["uint8"], quant and quant["int8"], served,
+        ingest, clustered) if x)
+    if tools:         # the kNN-LM example's datastore searches
+        descents += tools["launches"]["descent"]
+    rows.append(kernel_row("greedy_descent", csrc + "descent.cu",
+                           "src/repro/core/search.py:212", descents,
+                           descended and descended["err"], descended,
+                           descended["bound_by"] if descended else "latency"))
     pq = quant["pq"] if quant else None
     for name, source, replaces in (
             ("pq_topk", csrc + "pq_topk_smem.cu",

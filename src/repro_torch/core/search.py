@@ -13,8 +13,10 @@ instead of vmapped:
                                    partition axis P is folded into it, so
                                    L = P*B lanes search at once
 
-Upper layers run a greedy descent (ef = 1) as batched torch ops with a
-per-lane `running` mask (partitions have different `max_level`). Layer 0
+Upper layers run a greedy descent (ef = 1): `ops.greedy_descent`, one
+launch of `csrc/descent.cu` on the card for every lane, layer and hop,
+its plain version (lockstep torch ops with a per-lane `running` mask, a
+host sync a hop) on the CPU. Layer 0
 of a float32 or 8-bit DB always runs the superstep loop: `fused_layer0`
 advances every lane by H = max(fused_hops, 1) hops per call — the CUDA
 kernel on the card, its plain version on the CPU — until no lane is live.
@@ -31,14 +33,16 @@ rescales distances by scale**2.
 Product-quantized DBs (dtype "pq"): `db.vectors` holds [N_pad, M] uint8
 codes and the caller passes `lut`, the per-query [M, 256] ADC tables.
 Every distance is `pq_lut_distances` (a table gather, then a sum over
-subspaces). Queries are not padded, and layer 0 runs hop-stepped as
-plain torch ops (`_search_layer0_pq`), as the reference's does.
+subspaces). Queries are not padded, and the descent (kernels/descent.py
+`greedy_upper`) and layer 0 (`_search_layer0_pq`) run as plain torch ops on every device,
+as the reference's PQ path is plain JAX.
 
 Ids are int32 everywhere, -1 padded; distances are +inf padded.
 
 Spans (`TRACER.child_span`, under the caller's `search`): `descend`
-around the upper layers (`lanes`; `hops`, the lockstep hops, and `syncs`,
-the host syncs that decided them) and `layer0` around layer 0 (`lanes`;
+around the upper layers (`lanes`; `route`: "kernel" with `syncs` 0 and
+`launches` 1, or "plain" with `hops`, the lockstep hops, and `syncs`, the
+host syncs that decided them) and `layer0` around layer 0 (`lanes`;
 `supersteps`, the traversal launches; `dev_ms` on CUDA).
 """
 
@@ -50,7 +54,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.hnsw_graph import DeviceDB
-from repro_torch.kernels.ops import fused_layer0
+from repro_torch.kernels.descent import greedy_upper
+from repro_torch.kernels.ops import fused_layer0, greedy_descent
 from repro_torch.kernels.traversal import (
     layer0_hop,
     merge_sorted,
@@ -126,70 +131,12 @@ def pq_lut_distances(lut, codes):
     return vals.sum(-1)
 
 
-def _lane_distance_fn(db: DeviceDB, part, q=None, qsq=None,
-                      metric: str = "l2", lut=None):
-    """distances(idx [L, M] int64) -> [L, M]: lane l's distances to rows
-    idx[l] of its partition part[l].
-
-    With `lut` ([L, M_pq, 256], dtype="pq") a LUT gather + sum; otherwise
-    mul + sum over rows cast to float32 (`q`, `qsq` [L, ...]), as the
-    reference's `_batch_distances` (a matvec's summation order depends on
-    its context)."""
+def _lane_distance_fn(db: DeviceDB, part, lut):
+    """distances(idx [L, M] int64) -> [L, M]: lane l's ADC distances to
+    rows idx[l] of its partition part[l], from its tables `lut` [L, M_pq,
+    256] (dtype="pq"): a LUT gather + sum."""
     rows = part[:, None]
-    if lut is not None:
-        return lambda idx: pq_lut_distances(lut, db.vectors[rows, idx])
-    qd, qs = q[:, None, :], qsq[:, None]
-
-    def distances(idx):
-        dot = (db.vectors[rows, idx].float() * qd).sum(-1)
-        return metric_distance(metric, dot, db.sqnorms[rows, idx], qs)
-
-    return distances
-
-
-# ---------------------------------------------------------------------------
-# Upper layers: greedy descent (ef = 1), paper §5.2.2
-# ---------------------------------------------------------------------------
-
-
-def _greedy_upper(db: DeviceDB, part, distances, p: SearchParams,
-                  span=None):
-    """Descend every lane from its partition's top layer to layer 1.
-
-    Returns the layer-0 entry (id, distance) and the distance evaluations
-    so far, which start at 1 for the entry point itself. `span` (the
-    `descend` span) gets `hops`, the lockstep hops taken, and `syncs`, the
-    host syncs that decided whether to take one."""
-    ep = db.entry[part]
-    ep_d = distances(ep.long()[:, None])[:, 0]
-    cur, cur_d = ep, ep_d
-    calcs = torch.ones_like(ep)
-    max_level = db.max_level[part]
-    n_layers = db.up_nbrs.shape[1]                 # static cap - 1
-    hops = syncs = 0
-    for layer in range(n_layers, 0, -1):
-        running = layer <= max_level               # this partition has it
-        for _ in range(p.upper_hops):
-            syncs += 1
-            if not bool(running.any()):
-                break
-            hops += 1
-            row = db.up_ptr[part, cur.long()]
-            nbrs = db.up_nbrs[part, layer - 1, row.clamp_min(0).long()]
-            valid = (nbrs >= 0) & (row >= 0)[:, None]
-            safe = torch.where(valid, nbrs, torch.zeros_like(nbrs))
-            d = torch.where(valid, distances(safe.long()), _INF)
-            j = d.argmin(dim=1, keepdim=True)      # first index on ties
-            best_d = d.gather(1, j)[:, 0]
-            best = safe.gather(1, j)[:, 0]
-            calcs = torch.where(running, calcs + valid.sum(1, dtype=calcs.dtype),
-                                calcs)
-            running = running & (best_d < cur_d)
-            cur = torch.where(running, best, cur)
-            cur_d = torch.where(running, best_d, cur_d)
-    if span is not None:
-        span.set(hops=hops, syncs=syncs)
-    return cur, cur_d, calcs
+    return lambda idx: pq_lut_distances(lut, db.vectors[rows, idx])
 
 
 # ---------------------------------------------------------------------------
@@ -299,10 +246,17 @@ def search_lanes(db: DeviceDB, queries, p: SearchParams, lut=None):
         B = lut.shape[0]
     lane = torch.arange(P * B, device=dev)
     part, qrow = lane // B, lane % B
-    dist = (_lane_distance_fn(db, part, queries[qrow], qsq[qrow], p.metric)
-            if lut is None else _lane_distance_fn(db, part, lut=lut[qrow]))
     with TRACER.child_span("descend", lanes=P * B) as span:
-        ep, ep_d, up_calcs = _greedy_upper(db, part, dist, p, span)
+        if lut is None:
+            ep, ep_d, up_calcs = greedy_descent(
+                db.vectors, db.sqnorms, db.up_ptr, db.up_nbrs, db.entry,
+                db.max_level, queries, qsq, upper_hops=p.upper_hops,
+                metric=p.metric, span=span)
+        else:
+            dist = _lane_distance_fn(db, part, lut[qrow])
+            ep, ep_d, up_calcs = greedy_upper(
+                db.up_ptr, db.up_nbrs, db.entry, db.max_level, part, dist,
+                p.upper_hops, span)
     with TRACER.child_span("layer0", device_clock=dev, lanes=P * B) as span:
         if lut is None:
             fin_d, fin_i, hops, calcs = search_layer0(

@@ -29,10 +29,10 @@ __all__ = ["build_all", "count_launch", "load", "BUILD_LOG", "BUILD_DIR",
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/repro_torch (the repo root is three levels above the package)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("traversal", "traversal_async", "qdist", "pq_topk_smem",
-           "pq_adc_smem", "l2dist", "l2dist_tc", "l2dist_q_tc", "l2topk",
-           "l2topk_tc", "l2topk_q_tc", "select_k", "select_k_short",
-           "flash_attention", "flash_attention_tc")
+SOURCES = ("traversal", "traversal_async", "descent", "qdist",
+           "pq_topk_smem", "pq_adc_smem", "l2dist", "l2dist_tc",
+           "l2dist_q_tc", "l2topk", "l2topk_tc", "l2topk_q_tc", "select_k",
+           "select_k_short", "flash_attention", "flash_attention_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

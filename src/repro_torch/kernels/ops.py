@@ -14,6 +14,10 @@ from repro_torch.kernels.attention import (
     flash_attention_ref,
     flash_attention_vjp,
 )
+from repro_torch.kernels.descent import (
+    greedy_descent_cuda,
+    greedy_descent_ref,
+)
 from repro_torch.kernels.l2dist import l2dist_cuda, l2dist_ref
 from repro_torch.kernels.l2topk import l2topk_cuda, l2topk_ref
 from repro_torch.kernels.qdist import (
@@ -33,7 +37,7 @@ from repro_torch.kernels.traversal import (
 )
 
 __all__ = ["flash_attention", "flash_attention_differentiable",
-           "fused_layer0", "l2dist", "l2dist_q", "l2topk",
+           "fused_layer0", "greedy_descent", "l2dist", "l2dist_q", "l2topk",
            "l2topk_q", "pq_adc", "pq_topk", "topk"]
 
 
@@ -56,6 +60,20 @@ def fused_layer0(vectors, sqnorms, l0_nbrs, queries, qsq,
     return fn(vectors, sqnorms, l0_nbrs, queries, qsq,
               cand_d, cand_i, fin_d, fin_i, visited, hops, calcs,
               fused_hops=fused_hops, max_hops=max_hops, metric=metric)
+
+
+def greedy_descent(vectors, sqnorms, up_ptr, up_nbrs, entry, max_level,
+                   queries, qsq, *, upper_hops: int, metric: str = "l2",
+                   span=None):
+    """The upper-layer greedy descent (ef = 1) of every lane, from each
+    partition's entry point to its layer-0 entry (kernels/descent.py):
+    (cur [L] int32, cur_d [L] float32, calcs [L] int32) for L = P*B lanes
+    over partition-stacked float32 or 8-bit code rows. `span` (the
+    `descend` span) gets the route's attrs."""
+    fn = _pick(vectors, greedy_descent_cuda, greedy_descent_ref,
+               "greedy_descent")
+    return fn(vectors, sqnorms, up_ptr, up_nbrs, entry, max_level, queries,
+              qsq, upper_hops=upper_hops, metric=metric, span=span)
 
 
 def pq_adc(luts, codes, xpad=None):

@@ -100,9 +100,9 @@ def _query_prep_pq(luts, ep_code):
 
 def _upper_step(improved, c, c_d, calcs, nbrs, valid, vecs, sqs, q, qsq,
                 metric: str, lut=None):
-    """One lockstep greedy hop in an upper layer (cf. _greedy_upper). With
-    `lut` set (dtype="pq") `vecs` holds the gathered [M0, M] uint8 code
-    tiles; sqs/q/qsq ride along unused."""
+    """One lockstep greedy hop in an upper layer (cf. kernels/descent.py
+    greedy_upper). With `lut` set (dtype="pq") `vecs` holds the gathered
+    [M0, M] uint8 code tiles; sqs/q/qsq ride along unused."""
     d = _tile_distances(vecs, sqs, q, qsq, metric, lut)
     d = torch.where(valid, d, _INF)
     safe = torch.where(valid, nbrs, torch.zeros_like(nbrs))
